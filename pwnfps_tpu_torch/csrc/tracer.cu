@@ -1,0 +1,752 @@
+// Multi-bounce wavefront tracer for Hopper (sm_90a), fast mode, one page.
+//
+// Replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (behind
+// trace_wave_pallas) on the main path: for each ray, the whole
+// trace_wave_env of pwnfps_tpu/ops/tracer_core.py - DDA march with the
+// empty-space skip, ramps, fog, 2-high walls, quarter-turn portals,
+// hoisted sphere candidates, water-normal shading, the 5-draw reflect
+// jitter, the exp-fog unwind blend and the BGRA8 pack.  It follows the
+// plain torch tracer pwnfps_tpu_torch/ops/tracer_core.py expression for
+// expression and uses the device functions torch's CUDA ops call (rsqrtf,
+// IEEE 1/x and sqrtf, sinf, cosf, expf), so the two agree bit for bit
+// wherever those functions do.
+//
+// What bounds it on the H100: divergence and latency, not bandwidth.  A
+// ray's work is a data-dependent loop (a few steps for a wall hit, up to
+// the 1000-step budget for sky rays, per bounce), every step a dependent
+// gather from the 16 KB cell table, and ~40 scalars of march state plus
+// the unwind records live in registers.  So a warp runs as long as its
+// longest ray, and occupancy is set by the register count.
+//
+// Design, kept simple: one thread per ray over the flat [n] ray list
+// (row-major pixels on the main path), 128 threads a block.  The TPU
+// kernel's tile-uniform branches (lax.cond on any-lane flags, the
+// whole-tile sphere-hoist gate, the while loop's any-active test) become
+// per-thread branches: every such branch body is per-lane masked and a
+// dead lane is frozen, so a thread that takes a branch when its own event
+// bit is set computes the same bits.  The sphere records sit in shared
+// memory; the cell tables are read through the read-only cache.  Each
+// thread marches its own bounce chain to the end and unwinds it backward
+// (tracer_core.py:1795-1801).  Warp-coherent scheduling, ray compaction
+// and shared-memory cell tables are later work.
+//
+// Numerics: build with --fmad=false (ops/../_build.py) so a*b+c rounds
+// twice, as on the TPU and in eager torch; float literals carry the f
+// suffix so nothing is promoted to double; float-to-int conversions
+// saturate (__float2int_rz); maxima propagate NaN like jnp.maximum.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+// face directions (core/config.py)
+constexpr int FXP = 0, FZP = 1, FXN = 2, FZN = 3, FYP = 4, FYN = 5;
+// refined cell classes (ops/worlddev.py)
+constexpr int WALL = 0, FLOOR = 1, FOG = 2, LOWER = 3, TALL = 4,
+              TALLFOG = 5, RAMP_GT = 6, RAMP_LT = 7, RAMP_CM = 8,
+              RAMP_CR = 9, PORTAL = 10;
+constexpr int FLOORISH = (1 << FLOOR) | (1 << FOG) | (1 << LOWER);
+constexpr int TALLS = (1 << TALL) | (1 << TALLFOG);
+constexpr int RAMPS = (1 << (RAMP_CR + 1)) - (1 << RAMP_GT);
+constexpr int FOGC = (1 << FOG) | (1 << TALLFOG);
+// terminal kinds, wall colour ids
+constexpr int T_WALL = 1, T_SPHERE = 2, T_SKY = 3;
+constexpr int C_CEIL = 0, C_FLOOR = 1, C_WALL = 2, C_MAGENTA = 3;
+
+constexpr float EPS = 1e-13f;            // core/config.py EPSILON
+constexpr float FIRE_NONE = 3.0e38f;
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr int NSPH_MAX = 16;
+constexpr int SPH_COLS = 16;
+// sphere-record columns (ops/world.py)
+constexpr int SX = 0, SY = 1, SZ = 2, SREFL = 4, SCB = 5, SBX1 = 8,
+              SBX2 = 9, SBZ1 = 10, SBZ2 = 11, SRAD2 = 12, SINVR2 = 13;
+constexpr int MAX_WAVES = 8;
+
+// palette (b, g, r) per colour id (core/config.py COL_*)
+__constant__ float PAL[4][3] = {{30.0f, 30.0f, 0.0f},
+                                {1.0f, 1.0f, 1.0f},
+                                {0.8f, 0.8f, 1.0f},
+                                {5.0f, 0.0f, 5.0f}};
+
+struct World {
+    const int32_t* ent;      // [4096] compact cell entries
+    const int32_t* word;     // [4096] full channel words
+    const float* sph;        // [n, 16] sphere records (shared memory)
+    float bx, bz, brq2;      // bound circle centre and radius^2 + slack
+    int n_spheres;
+    bool skip;
+};
+
+struct Seg {
+    float px, py, pz, rx, ry, rz, ix, iy, iz, wx, wy, wz;
+    int ent, gx, gy, gz, cx, cz;
+    float cdist, fog;
+    int ldir;
+    bool active;
+    float aux_dist, aux_t0;
+    int sph_dirty;
+    float apx, apy, apz;
+    int aux_idx;
+    float aux_diff;
+    int tmeta;
+};
+
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+__device__ __forceinline__ bool bit(int bits, int c) {
+    return ((bits >> c) & 1) != 0;
+}
+
+__device__ __forceinline__ int flat_index(int cx, int cz) {
+    const bool inb = cx >= 0 && cx < 64 && cz >= 0 && cz < 64;
+    return inb ? cz * 64 + cx : 0;
+}
+
+__device__ __forceinline__ int fetch(const World& w, int cx, int cz) {
+    return __ldg(w.ent + flat_index(cx, cz));
+}
+
+// v_normalise: s = (x^2 + z^2) + y^2, times rsqrt
+__device__ __forceinline__ void normalise(float& x, float& y, float& z) {
+    const float s = (x * x + z * z) + y * y;
+    const float r = rsqrtf(s);
+    x = x * r;
+    y = y * r;
+    z = z * r;
+}
+
+// XZ line vs the bound circle (tracer_core.make_sphere_rel)
+__device__ __forceinline__ bool sphere_rel(const World& w, float px,
+                                           float pz, float vx, float vz) {
+    const float rx = w.bx - px;
+    const float rz = w.bz - pz;
+    const float d2xz = rx * rx + rz * rz;
+    const float dtxz = rx * vx + rz * vz;
+    const float l2 = vx * vx + vz * vz;
+    return (d2xz - w.brq2) * l2 < dtxz * dtxz;
+}
+
+// Hoisted sphere candidates of the lane's current line
+// (tracer_core.make_sphere_all run_full); `run` is the lane's mask &
+// active.  Returns the relevance bit (0 or 2).
+__device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
+    if (run) {
+        float fire, best_aux;
+        if (merge && s.aux_dist != -1.0f) {
+            fire = fmax_nan(s.aux_dist, s.aux_t0);
+            best_aux = s.aux_dist;
+        } else {
+            fire = FIRE_NONE;
+            best_aux = FIRE_NONE;
+        }
+        bool nw = false;
+        float w_te = 0.0f, w_sd = 0.0f;
+        int w_idx = 0;
+        const bool sxp = s.rx >= 0.0f;
+        const bool szp = s.rz >= 0.0f;
+        const float ivx_s = sxp ? s.ix : -s.ix;
+        const float ivz_s = szp ? s.iz : -s.iz;
+        for (int si = 0; si < w.n_spheres; ++si) {
+            const float* r = w.sph + si * SPH_COLS;
+            const float tx = ((sxp ? r[SBX1] : r[SBX2]) - s.px) * ivx_s;
+            const float tz = ((szp ? r[SBZ1] : r[SBZ2]) - s.pz) * ivz_s;
+            const float t_entry = fmax_nan(fmax_nan(tx, tz), 0.0f);
+            const float ex = s.px + s.rx * t_entry;
+            const float ey = s.py + s.ry * t_entry;
+            const float ez = s.pz + s.rz * t_entry;
+            const float relx = r[SX] - ex, rely = r[SY] - ey,
+                        relz = r[SZ] - ez;
+            const float dist2 = (relx * relx + relz * relz) + rely * rely;
+            const float dot = (relx * s.rx + relz * s.rz) + rely * s.ry;
+            const float calcrad2 = dist2 - dot * dot;
+            const float sph_dist = sqrtf(dist2) - sqrtf(fmax_nan(
+                1.0f - calcrad2 * r[SINVR2], 0.0f));
+            const float te_d = s.cdist + t_entry;
+            const float aux_c = sph_dist + te_d;
+            const float fire_c = fmax_nan(aux_c, te_d);
+            const bool upd = dot > 0.0f && calcrad2 < r[SRAD2]
+                && (fire_c < fire || (fire_c == fire && aux_c < best_aux));
+            if (upd) {
+                fire = fire_c;
+                best_aux = aux_c;
+                nw = true;
+                w_te = t_entry;
+                w_sd = sph_dist;
+                w_idx = si;
+            }
+        }
+        if (nw) {
+            const float* r = w.sph + w_idx * SPH_COLS;
+            const float fx = s.px + s.rx * w_te;
+            const float fy = s.py + s.ry * w_te;
+            const float fz = s.pz + s.rz * w_te;
+            const float ax = fx + s.rx * w_sd;
+            const float ay = fy + s.ry * w_sd;
+            const float az = fz + s.rz * w_sd;
+            float nx = ax - r[SX], ny = ay - r[SY], nz = az - r[SZ];
+            normalise(nx, ny, nz);
+            float diff = fmax_nan(-((s.rx * nx + s.rz * nz) + s.ry * ny),
+                                  0.0f);
+            diff = 0.2f + 0.8f * diff;
+            s.aux_dist = best_aux;
+            s.apx = ax;
+            s.apy = ay;
+            s.apz = az;
+            s.aux_idx = w_idx;
+            s.aux_diff = diff;
+            s.aux_t0 = s.cdist + w_te;
+        }
+    }
+    return sphere_rel(w, s.px, s.pz, s.rx, s.rz) ? 2 : 0;
+}
+
+// segment prologue (tracer_core._init_march + init_segment)
+__device__ void init_segment(const World& w, Seg& s, float fx, float fy,
+                             float fz, float irx, float iry, float irz,
+                             bool active) {
+    float rx = irx, ry = iry, rz = irz;
+    normalise(rx, ry, rz);
+    auto clamp = [](float c) {
+        return (c > -EPS && c < EPS) ? (c < 0.0f ? -EPS : EPS) : c;
+    };
+    rx = clamp(rx);
+    ry = clamp(ry);
+    rz = clamp(rz);
+    s.cx = __float2int_rz(fx);
+    s.cz = __float2int_rz(fz);
+    s.gx = irx < 0.0f ? -1 : 1;
+    s.gy = iry < 0.0f ? -1 : 1;
+    s.gz = irz < 0.0f ? -1 : 1;
+    s.ix = 1.0f / fabsf(rx);
+    s.iy = 1.0f / fabsf(ry);
+    s.iz = 1.0f / fabsf(rz);
+    const float wdx = fx - (float)s.cx;
+    const float wdz = fz - (float)s.cz;
+    s.wx = (rx >= 0.0f ? 1.0f - wdx : wdx) * s.ix;
+    s.wy = (ry >= 0.0f ? 1.0f - fy : fy) * s.iy;
+    s.wz = (rz >= 0.0f ? 1.0f - wdz : wdz) * s.iz;
+    s.ent = fetch(w, s.cx, s.cz);
+    s.px = fx;
+    s.py = fy;
+    s.pz = fz;
+    s.rx = rx;
+    s.ry = ry;
+    s.rz = rz;
+    s.cdist = 0.0f;
+    s.fog = 0.0f;
+    s.ldir = FYN;
+    s.active = active;
+    s.aux_dist = -1.0f;
+    s.aux_t0 = -1.0f;
+    s.sph_dirty = 0;
+    s.apx = s.apy = s.apz = 0.0f;
+    s.aux_idx = 0;
+    s.aux_diff = 0.0f;
+    s.tmeta = 0;
+}
+
+// One DDA step of an active lane (tracer_core.segment_body, fast mode)
+__device__ void segment_body(const World& w, Seg& s) {
+    const bool has_sph = w.n_spheres > 0;
+    const int cls = s.ent & 0xF;
+
+    // ---- rare events: sphere refresh, portal targets, ramp tilt ----
+    if (has_sph && (s.sph_dirty & 1)) {
+        s.sph_dirty = sphere_all(w, s, true, true);
+    }
+    const bool is_portal = cls == PORTAL;
+    const bool is_ramp = bit(RAMPS, cls);
+    int pkind = 0, ldir_p = 0, gx_r = 0, gz_r = 0, cx_f = 0, cz_f = 0;
+    float px_f = 0.0f, pz_f = 0.0f, vx_r = 0.0f, vz_r = 0.0f,
+          wx_r = 0.0f, wz_r = 0.0f, ix_r = 0.0f, iz_r = 0.0f;
+    bool nr = false;
+    if (is_portal) {
+        const int pw = __ldg(w.word + flat_index(s.cx, s.cz));
+        pkind = (pw >> 4) & 3;
+        const int prot = (pw >> 6) & 3;
+        const int pdcx = ((pw >> 12) & 0x7F) - 64;
+        const int pdcz = ((pw >> 19) & 0x7F) - 64;
+        const int cxp = s.cx + pdcx;
+        const int czp = s.cz + pdcz;
+        const float px_t = s.px + (float)pdcx;
+        const float pz_t = s.pz + (float)pdcz;
+        ldir_p = (s.ldir - prot) & 3;
+        const float cxh = (float)cxp + 0.5f;
+        const float czh = (float)czp + 0.5f;
+        const bool r1 = prot == 1, r2 = prot == 2, r3 = prot == 3;
+        const float px_r = r1 ? cxh + (pz_t - czh)
+            : r2 ? cxh * 2.0f - px_t : r3 ? cxh - (pz_t - czh) : px_t;
+        const float pz_r = r1 ? czh - (px_t - cxh)
+            : r2 ? czh * 2.0f - pz_t : r3 ? czh + (px_t - cxh) : pz_t;
+        vx_r = r1 ? s.rz : r2 ? -s.rx : r3 ? -s.rz : s.rx;
+        vz_r = r1 ? -s.rx : r2 ? -s.rz : r3 ? s.rx : s.rz;
+        gx_r = r1 ? s.gz : r2 ? -s.gx : r3 ? -s.gz : s.gx;
+        gz_r = r1 ? -s.gx : r2 ? -s.gz : r3 ? s.gx : s.gz;
+        const bool swap = r1 || r3;
+        wx_r = swap ? s.wz : s.wx;
+        wz_r = swap ? s.wx : s.wz;
+        ix_r = swap ? s.iz : s.ix;
+        iz_r = swap ? s.ix : s.iz;
+        const int step_dx = ldir_p == FZP ? 0 : ldir_p == FXN ? -1
+            : ldir_p == FZN ? 0 : 1;
+        const int step_dz = ldir_p == FZP ? 1 : ldir_p == FZN ? -1 : 0;
+        cx_f = cxp + step_dx;
+        cz_f = czp + step_dz;
+        px_f = px_r + (float)step_dx;
+        pz_f = pz_r + (float)step_dz;
+        if (has_sph) nr = sphere_rel(w, px_f, pz_f, vx_r, vz_r);
+    }
+    // tilt is exactly 0 on non-ramp lanes (tracer_core.py:922-925)
+    float tilt = 0.0f, wy_ramp = 0.0f;
+    if (is_ramp) {
+        const float coef_x = cls == RAMP_GT ? -0.5f
+            : cls == RAMP_LT ? 0.5f : 0.0f;
+        const float coef_z = cls == RAMP_CM ? -0.5f
+            : cls == RAMP_CR ? 0.5f : 0.0f;
+        const bool rampx = cls == RAMP_GT || cls == RAMP_LT;
+        tilt = rampx ? coef_x * s.rx : coef_z * s.rz;
+        const float ry2 = s.ry + tilt;
+        const float ay2 = ry2 < 0.0f ? -ry2 : ry2;
+        wy_ramp = (ry2 >= 0.0f ? 1.0f - s.py : s.py) * (1.0f / ay2);
+    }
+
+    const bool is_floorish = bit(FLOORISH, cls);
+    const bool is_tall = bit(TALLS, cls);
+    const bool is_wall = cls == WALL;
+    const bool is_fogc = bit(FOGC, cls);
+    const bool has_aux = s.aux_dist != -1.0f;
+    const float fire = has_sph ? fmax_nan(s.aux_dist, s.aux_t0)
+                               : s.aux_dist;
+    const float ray_y2 = s.ry + tilt;
+
+    // ---- empty-space skip ----
+    const float wx = s.wx, wy0 = s.wy, wz = s.wz;
+    float wxe = wx, wze = wz;
+    int kx = 0, kz = 0;
+    if (w.skip) {
+        const int runx = (s.ent >> 7) & 0xF;
+        const int runz = (s.ent >> 11) & 0xF;
+        const int jx = __float2int_rz(floorf((wz - wx) * fabsf(s.rx)));
+        const int jz = __float2int_rz(floorf((wx - wz) * fabsf(s.rz)));
+        kx = min(max(min(runx, jx), 0), 15);
+        kz = min(max(min(runz, jz), 0), 15);
+        wxe = wx + (float)kx * s.ix;
+        wze = wz + (float)kz * s.iz;
+    }
+    const float wy_tall = s.gy > 0 ? wy0 + s.iy : wy0;
+    const float wy = is_tall ? wy_tall : (is_ramp ? wy_ramp : wy0);
+
+    // ---- ramps: sphere exit before stepping ----
+    bool a = true;
+    const bool sgt = s.cdist > fire;
+    const bool m_presph = is_ramp && has_aux && sgt;
+    a = a && !m_presph;
+
+    // ---- min-axis crossing ----
+    const bool ymin = wy < wxe && wy < wze;
+    const bool xmin = !ymin && wxe < wze;
+    const bool zmin = !(ymin || xmin);
+    const float t = ymin ? wy : (xmin ? wxe : wze);
+    const int gsel = is_ramp ? s.gy : s.gx;
+    const int ldir2 = ymin ? (s.gy < 0 ? FYN : FYP)
+        : xmin ? (gsel < 0 ? FXN : FXP) : (s.gz < 0 ? FZN : FZP);
+    const bool marchable = is_floorish || is_tall || is_ramp;
+    const float cdist2 = s.cdist + t;
+    const float p2x = s.px + s.rx * t;
+    const float p2y = s.py + ray_y2 * t;
+    const float p2z = s.pz + s.rz * t;
+
+    // ---- floor/tall: fog + sphere exit + Y hit ----
+    bool ft = a && (is_floorish || is_tall);
+    const bool m_sph2 = ft && has_aux && cdist2 > fire;
+    const float extra = (is_fogc && s.aux_dist > s.cdist)
+        ? s.aux_dist - s.cdist : 0.0f;
+    a = a && !m_sph2;
+    ft = a && (is_floorish || is_tall);
+    const float fog2 = (ft && is_fogc) ? s.fog + (cdist2 - s.cdist)
+                                       : s.fog;
+    const bool isY2 = ldir2 == FYN || ldir2 == FYP;
+    const bool m_yhit = ft && isY2;
+    a = a && !m_yhit;
+
+    // ---- ramp Y hit ----
+    const bool ramp_go = a && is_ramp;
+    const bool m_ryhit = ramp_go && isY2;
+    a = a && !m_ryhit;
+
+    // ---- X/Z continuation ----
+    const bool cont = a && marchable;
+    const bool xstep = cont && xmin;
+    const bool zstep = cont && zmin;
+    const bool stepped = xstep || zstep;
+    const float sub = xstep ? wxe : wze;
+    const float wnx = xstep ? s.ix : wx - sub;
+    float wny = wy - sub;
+    const float wnz = zstep ? s.iz : wz - sub;
+    if (stepped && is_tall && s.gy > 0) wny = wny - s.iy;
+    const int cx2 = s.cx + (xstep ? s.gx * (1 + kx) : 0);
+    const int cz2 = s.cz + (zstep ? s.gz * (1 + kz) : 0);
+    const int ldir3 = (ramp_go && xstep) ? (s.rx < 0.0f ? FXN : FXP)
+        : (ramp_go && zstep) ? (s.rz < 0.0f ? FZN : FZP) : ldir2;
+    const bool rgs = ramp_go && stepped;
+    const float ray_y3 = rgs ? ray_y2 - tilt : ray_y2;
+    if (rgs) wny = (ray_y3 >= 0.0f ? 1.0f - p2y : p2y) * s.iy;
+
+    // ---- portal traversal + the one per-step fetch ----
+    const bool pgo = a && is_portal && pkind == 1;
+    int f_next = s.ent;
+    if (stepped || pgo) {
+        f_next = pgo ? fetch(w, cx_f, cz_f) : fetch(w, cx2, cz2);
+    }
+
+    // ---- transitions ----
+    const int ncls = f_next & 0xF;
+    float pos3y = p2y;
+    const bool tr1 = stepped && cls == LOWER && bit(TALLS, ncls);
+    if (tr1) {
+        pos3y = pos3y + 1.0f;
+        wny = s.gy < 0 ? wny + s.iy : wny - s.iy;
+    }
+    const bool tr2 = stepped && is_tall && ncls == LOWER;
+    if (tr2) {
+        pos3y = pos3y - 1.0f;
+        wny = s.gy > 0 ? wny + s.iy : wny - s.iy;
+    }
+
+    // ---- 2-high wall check ----
+    const int xc = (f_next >> 4) & 3;
+    const bool chk = stepped && is_tall && (pos3y < 0.0f || pos3y > 1.0f);
+    if (chk && xc == 2) {
+        pos3y = pos3y + 1.0f;
+        wny = s.gy > 0 ? wny - s.iy : wny + s.iy;
+    }
+    const bool m_wall2 = chk && xc != 1;
+    a = a && !m_wall2;
+
+    // ---- portal cells + plain wall ----
+    const bool p_bad = a && is_portal && pkind == 2;
+    const bool p_wrong = a && is_portal && pkind == 3;
+    const bool wall0 = a && is_wall;
+    const bool sphfire = has_aux && sgt;
+    a = a && !(p_bad || p_wrong || wall0);
+    const bool m_pww = p_wrong && !sphfire;
+    const bool m_wallm = wall0 && !sphfire;
+
+    // ---- merged terminal + survivor writes ----
+    const bool sphm = m_presph || m_sph2 || ((p_bad || p_wrong || wall0)
+                                             && sphfire);
+    const bool term = sphm || m_yhit || m_ryhit || m_wall2
+        || ((p_bad || p_wrong || wall0) && !sphfire);
+    const bool near = m_yhit || m_ryhit || m_wall2;
+    const bool my2 = m_yhit || m_ryhit;
+    const bool cont2 = a && stepped;
+    const bool pgo2 = a && pgo;
+    const bool cn = cont2 || near;
+    const bool cw = cont2 || m_wall2;
+    if (term) {
+        const int colid = m_yhit ? (s.gy > 0 ? C_CEIL : C_FLOOR)
+            : m_ryhit ? (ray_y2 >= 0.0f ? C_CEIL : C_FLOOR)
+            : m_pww ? C_MAGENTA
+            : (m_wallm && s.ldir == FYP) ? C_CEIL : C_WALL;
+        s.tmeta = sphm ? T_SPHERE : (T_WALL | (colid << 2));
+    }
+    const float npx = pgo2 ? px_f : (cn ? p2x : s.px);
+    const float npy = cw ? pos3y : (my2 ? p2y : s.py);
+    const float npz = pgo2 ? pz_f : (cn ? p2z : s.pz);
+    const float nry = cont2 ? ray_y3
+        : ((m_presph || m_ryhit) ? ray_y2 : s.ry);
+    const float nrx = pgo2 ? vx_r : s.rx;
+    const float nrz = pgo2 ? vz_r : s.rz;
+    const float nwx = pgo2 ? wx_r : (cont2 ? wnx : wx);
+    const float nwy = cont2 ? wny : wy0;
+    const float nwz = pgo2 ? wz_r : (cont2 ? wnz : wz);
+    const float nix = pgo2 ? ix_r : s.ix;
+    const float niz = pgo2 ? iz_r : s.iz;
+    const int ngx = pgo2 ? gx_r : s.gx;
+    const int ngz = pgo2 ? gz_r : s.gz;
+    const int ncx = cont2 ? cx2 : (pgo2 ? cx_f : s.cx);
+    const int ncz = cont2 ? cz2 : (pgo2 ? cz_f : s.cz);
+    const float ncd = cn ? cdist2 : (sphm ? s.aux_dist : s.cdist);
+    const float nfog = (cont2 || m_yhit || m_wall2) ? fog2
+        : (m_sph2 ? s.fog + extra : s.fog);
+    const int nld = cont2 ? ldir3 : pgo2 ? ldir_p
+        : m_ryhit ? (ray_y2 < 0.0f ? FYN : FYP)
+        : (m_yhit || m_wall2) ? ldir2 : s.ldir;
+    if (cont2 || pgo2) s.ent = f_next;
+    s.px = npx;
+    s.py = npy;
+    s.pz = npz;
+    s.rx = nrx;
+    s.ry = nry;
+    s.rz = nrz;
+    s.wx = nwx;
+    s.wy = nwy;
+    s.wz = nwz;
+    s.ix = nix;
+    s.iz = niz;
+    s.gx = ngx;
+    s.gz = ngz;
+    s.cx = ncx;
+    s.cz = ncz;
+    s.cdist = ncd;
+    s.fog = nfog;
+    s.ldir = nld;
+    s.active = !term;
+
+    // ---- hoisted-sphere line-change bookkeeping ----
+    if (has_sph) {
+        const bool ev_shift = stepped && (tr1 || tr2 || ramp_go)
+            && ((s.sph_dirty >> 1) & 1);
+        const bool drop = (pgo2 || ev_shift) && s.aux_dist != -1.0f
+            && s.cdist < s.aux_t0;
+        s.sph_dirty = pgo2 ? (nr ? 3 : 0)
+            : (ev_shift ? (s.sph_dirty | 1) : s.sph_dirty);
+        if (drop) s.aux_dist = -1.0f;
+    }
+
+    // ---- end-of-iteration sphere check ----
+    if (s.active && s.aux_dist != -1.0f && s.cdist > fire) {
+        s.tmeta = T_SPHERE;
+        s.cdist = s.aux_dist;
+        s.active = false;
+    }
+}
+
+struct Shade {
+    float b, g, r, a;     // base colour
+    float refl, fog;
+    bool bounce;
+};
+
+__device__ __forceinline__ float randfs(uint32_t& seed, float inv_mod) {
+    seed = (seed * 25739u + 4u) & 0x7FFFFFFFu;
+    const float f = (float)(seed % 3759u) * inv_mod;
+    return f * 2.0f - 1.0f;
+}
+
+// Terminal shading + bounce prep of a finished segment (seg_out_view +
+// shade_and_bounce).  icol: the parent's base colour; on return
+// (fx..rz) hold the bounce ray's origin and direction.
+__device__ Shade shade(const World& w, const Seg& s, const float icol[4],
+                       uint32_t& seed, float sec, bool depth_ok,
+                       float inv_mod, float& fx, float& fy, float& fz,
+                       float& rx_o, float& ry_o, float& rz_o) {
+    const int tkind = s.tmeta & 3;
+    const int tcolid = (s.tmeta >> 2) & 3;
+    const int ld = s.ldir;
+    const float rx = s.rx, ry = s.ry, rz = s.rz;
+    // sphere winner rematerialization (make_sphere_view)
+    float refl_s = 0.25f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    float cb = 1.0f, cg = 1.0f, cr = 1.0f, ca = 1.0f;
+    if (w.n_spheres > 0 && s.aux_dist != -1.0f) {
+        const float* r = w.sph + s.aux_idx * SPH_COLS;
+        nx = s.apx - r[SX];
+        ny = s.apy - r[SY];
+        nz = s.apz - r[SZ];
+        normalise(nx, ny, nz);
+        refl_s = r[SREFL];
+        cb = s.aux_diff * r[SCB];
+        cg = s.aux_diff * r[SCB + 1];
+        cr = s.aux_diff * r[SCB + 2];
+        ca = 0.0f;
+    }
+    const float apx = w.n_spheres > 0 ? s.apx : 0.0f;
+    const float apy = w.n_spheres > 0 ? s.apy : 0.0f;
+    const float apz = w.n_spheres > 0 ? s.apz : 0.0f;
+
+    float d = ld == FYP ? ry : ld == FZP ? rz : ld == FXN ? -rx
+        : ld == FYN ? -ry : ld == FZN ? -rz : rx;
+    d = fmax_nan(d, 0.0f);
+    d = 0.9f * d + 0.1f;
+    const bool is_wall = tkind == T_WALL;
+    const bool is_sph = tkind == T_SPHERE;
+    Shade o;
+    if (is_wall) {
+        o.b = (icol[0] * PAL[tcolid][0]) * d;
+        o.g = (icol[1] * PAL[tcolid][1]) * d;
+        o.r = (icol[2] * PAL[tcolid][2]) * d;
+        o.a = (icol[3] * 0.0f) * d;
+        o.refl = ld == FYN ? 0.7f : 0.25f;
+    } else if (is_sph) {
+        o.b = cb;
+        o.g = cg;
+        o.r = cr;
+        o.a = ca;
+        o.refl = refl_s;
+    } else {
+        o.b = rx;
+        o.g = ry;
+        o.r = rz;
+        o.a = 0.0f;
+        o.refl = 0.0f;
+    }
+    o.bounce = (is_wall || is_sph) && o.refl != 0.0f && depth_ok;
+    o.fog = s.fog;
+
+    // mirror + nudge (trace_hit_bounce)
+    const float eps = 0.001f;
+    const bool negx = ld == FXP || ld == FXN;
+    const bool negz = ld == FZP || ld == FZN;
+    float mrx = (is_wall && negx) ? -rx : rx;
+    float mry = (is_wall && ld == FYP) ? -ry : ry;
+    float mrz = (is_wall && negz) ? -rz : rz;
+    float mpx = s.px, mpy = s.py, mpz = s.pz;
+    if (is_wall) {
+        mpx = s.px + (ld == FXP ? -eps : ld == FXN ? eps : 0.0f);
+        mpy = s.py + ((ld == FYP || ld == FYN) ? -eps : 0.0f);
+        mpz = s.pz + (ld == FZP ? -eps : ld == FZN ? eps : 0.0f);
+    }
+    // water floor: normal from the nudged position
+    const bool is_water = is_wall && ld == FYN;
+    if (is_water) {
+        const float ang = (PI_F * 2.0f)
+            * ((sinf((PI_F * 0.5f) * mpx) + cosf((PI_F * 0.5f) * mpz))
+               + sec);
+        nx = sinf(ang);
+        ny = 38.0f;
+        nz = cosf(ang);
+        normalise(nx, ny, nz);
+    }
+    if (is_sph) {
+        mpx = apx - rx * 0.001f;
+        mpy = apy - ry * 0.001f;
+        mpz = apz - rz * 0.001f;
+    }
+    if (is_water || is_sph) {
+        const float rmul = -2.0f * (((0.0f + rx * nx) + ry * ny) + rz * nz);
+        mrx = nx * rmul + rx;
+        mry = ny * rmul + ry;
+        mrz = nz * rmul + rz;
+        normalise(mrx, mry, mrz);
+    }
+    // reflect blur: 5 draws, 2 discarded (trace.h:77-84)
+    const float rb = 0.03f;
+    rx_o = mrx + randfs(seed, inv_mod) * rb;
+    ry_o = mry + randfs(seed, inv_mod) * rb;
+    randfs(seed, inv_mod);
+    rz_o = mrz + randfs(seed, inv_mod) * rb;
+    randfs(seed, inv_mod);
+    fx = mpx;
+    fy = mpy;
+    fz = mpz;
+    return o;
+}
+
+__device__ __forceinline__ uint32_t pack_chan(float c, int shift) {
+    const float v = c * 255.0f;
+    if (v >= 2147483648.0f || v != v) return 0u;
+    const float r = fminf(fmaxf(rintf(v), 0.0f), 255.0f);
+    return ((uint32_t)r) << shift;
+}
+
+__global__ void __launch_bounds__(128)
+trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+             const float* __restrict__ oz, const float* __restrict__ dx,
+             const float* __restrict__ dy, const float* __restrict__ dz,
+             const int32_t* __restrict__ seeds,
+             const int32_t* __restrict__ ent,
+             const int32_t* __restrict__ word,
+             const float* __restrict__ sph_g,
+             const float* __restrict__ bound, int n, int n_spheres,
+             int maxsteps, int reflect, int skip, float sec, float slack,
+             float inv_mod, int32_t* __restrict__ out_fb,
+             float* __restrict__ out_dist) {
+    __shared__ float sph[NSPH_MAX * SPH_COLS];
+    for (int k = threadIdx.x; k < n_spheres * SPH_COLS; k += blockDim.x)
+        sph[k] = sph_g[k];
+    __syncthreads();
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+
+    World w;
+    w.ent = ent;
+    w.word = word;
+    w.sph = sph;
+    w.bx = bound[0];
+    w.bz = bound[2];
+    w.brq2 = bound[3] * bound[3] + slack;
+    w.n_spheres = n_spheres;
+    w.skip = skip != 0;
+
+    uint32_t seed = (uint32_t)seeds[i];
+    float fx = ox[i], fy = oy[i], fz = oz[i];
+    float rx = dx[i], ry = dy[i], rz = dz[i];
+    float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    float base[MAX_WAVES][4], refl[MAX_WAVES], fog[MAX_WAVES];
+    float dist0 = 0.0f;
+    const int n_waves = reflect + 1;
+    int last = 0;
+    Seg s;
+    for (int k = 0; k < n_waves; ++k) {
+        init_segment(w, s, fx, fy, fz, rx, ry, rz, true);
+        if (n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
+        for (int step = 0; step < maxsteps && s.active; ++step)
+            segment_body(w, s);
+        if (s.active) s.tmeta = T_SKY;
+        if (k == 0) dist0 = s.cdist;
+        const Shade o = shade(w, s, icol, seed, sec, k < reflect, inv_mod,
+                              fx, fy, fz, rx, ry, rz);
+        base[k][0] = o.b;
+        base[k][1] = o.g;
+        base[k][2] = o.r;
+        base[k][3] = o.a;
+        refl[k] = o.refl;
+        fog[k] = o.fog;
+        icol[0] = o.b;
+        icol[1] = o.g;
+        icol[2] = o.r;
+        icol[3] = o.a;
+        last = k;
+        if (!o.bounce) break;
+    }
+    // backward unwind blend (tracer_core.py:1795-1801): every wave below
+    // `last` bounced
+    float col[4] = {base[last][0], base[last][1], base[last][2],
+                    base[last][3]};
+    for (int k = last - 1; k >= 0; --k) {
+        const float fogf = expf(-0.6f * fog[k]);
+        for (int c = 0; c < 4; ++c) {
+            const float blended = col[c] * refl[k]
+                + base[k][c] * (1.0f - refl[k]);
+            col[c] = fog[k] != 0.0f ? blended * fogf + (1.0f - fogf)
+                                    : blended;
+        }
+    }
+    out_dist[i] = dist0;
+    out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
+                          | pack_chan(col[2], 16) | pack_chan(col[3], 24));
+}
+
+}  // namespace
+
+// Trace n rays.  Inputs: origins (ox, oy, oz) and directions (dx, dy, dz)
+// f32 [n], seeds i32 [n] (uint32 bits); the world tables of
+// ops/world.py:world_to_torch.  Output: out_fb i32 [n] packed BGRA and
+// out_dist f32 [n] primary-wave distance.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
+                            const void* dx, const void* dy, const void* dz,
+                            const void* seeds, const void* ent,
+                            const void* word, const void* sph,
+                            const void* bound, int n, int n_spheres,
+                            int maxsteps, int reflect, int skip,
+                            float sec, float slack, float inv_mod,
+                            void* out_fb, void* out_dist, void* stream) {
+    if (n_spheres > NSPH_MAX || reflect + 1 > MAX_WAVES || reflect < 0)
+        return (int)cudaErrorInvalidValue;
+    if (n <= 0) return (int)cudaGetLastError();
+    const int block = 128;
+    const int grid = (n + block - 1) / block;
+    trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const int32_t*)seeds, (const int32_t*)ent, (const int32_t*)word,
+        (const float*)sph, (const float*)bound, n, n_spheres, maxsteps,
+        reflect, skip, sec, slack, inv_mod, (int32_t*)out_fb,
+        (float*)out_dist);
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,85 @@
+"""Frame renderer (pwnfps_tpu/render/frame.py, fast mode).
+
+ray gen -> multi-bounce trace with in-kernel BGRA8 pack -> DoF blur.
+On CUDA tensors the trace and the blur are one kernel launch each
+(ops/tracer.py, ops/blur.py); on CPU tensors both take their plain
+torch versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pwnfps_tpu.core.config import RenderConfig
+from pwnfps_tpu.ops.worlddev import WorldMeta
+
+from ..core import lcg
+from ..ops.blur import dof_blur
+from ..ops.tracer import trace_wave
+from ..ops.vec import V3
+from ..ops.world import TorchWorld
+
+
+def gen_rays(rayb, rdx, rdy, width: int, height: int) -> V3:
+    """Fast-mode per-pixel ray directions as V3 of [h*w] tensors: pixel
+    (x, y) uses (rayb + y*rdy) + (x+1)*rdx (frame.py:41-55)."""
+    dev = rayb.device
+    ys = torch.arange(height, dtype=torch.int32, device=dev).to(
+        torch.float32)
+    xs = torch.arange(1, width + 1, dtype=torch.int32, device=dev).to(
+        torch.float32)
+
+    def comp(i):
+        v = (rayb[i] + ys[:, None] * rdy[i]) + xs[None, :] * rdx[i]
+        return v.reshape(-1)
+
+    return V3(comp(0), comp(1), comp(2))
+
+
+def pixel_seeds(width: int, height: int, device) -> torch.Tensor:
+    """Per-pixel primary-ray seeds, row-major [h*w] int32 (uint32 bits)."""
+    xs = torch.arange(width, dtype=torch.int64, device=device)
+    ys = torch.arange(height, dtype=torch.int64, device=device)
+    s = lcg.pixel_seed(xs[None, :], ys[:, None], width)
+    return lcg.to_i32_bits(s.reshape(-1))
+
+
+def _vec3(v, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+
+def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
+                 origin, rayb, rdx, rdy, sec):
+    """-> (framebuffer [h, w] int32 holding uint32 BGRA, zbuf [h, w] f32),
+    on the world's device.  origin/rayb/rdx/rdy: float32 [3] (numpy or
+    tensors, as render/camera.camera_vectors gives them); sec: the clock.
+    """
+    if cfg.parity:
+        raise NotImplementedError("parity mode is not ported yet")
+    if meta.n_pages != 1:
+        raise NotImplementedError("paged worlds are not ported yet")
+    dev = world.device
+    h, w = cfg.height, cfg.width
+    rays = gen_rays(_vec3(rayb, dev), _vec3(rdx, dev), _vec3(rdy, dev),
+                    w, h)
+    n = h * w
+    o = _vec3(origin, dev)
+    ifrom = V3(*(o[i].expand(n) for i in range(3)))
+    seeds = pixel_seeds(w, h, dev)
+    fb, zbuf = trace_wave(world, cfg, ifrom, rays, seeds, sec, pack=True)
+    fb, zbuf = fb.reshape(h, w), zbuf.reshape(h, w)
+    if cfg.postproc_blur:
+        fb = dof_blur(fb, zbuf, cfg.postproc_blur)
+    return fb, zbuf
+
+
+def upscale(fb: np.ndarray, scale: int) -> np.ndarray:
+    """Nearest-neighbour integer upscale (screen.h:126-149), host-side."""
+    return np.repeat(np.repeat(fb, scale, axis=0), scale, axis=1)
+
+
+def fb_to_rgb(fb: np.ndarray) -> np.ndarray:
+    """uint32 BGRA framebuffer -> [h,w,3] uint8 RGB for export."""
+    px = np.ascontiguousarray(fb).view(np.uint8).reshape(*fb.shape, 4)
+    return px[..., [2, 1, 0]]
