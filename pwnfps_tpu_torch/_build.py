@@ -25,10 +25,12 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 # --fmad=false: every a*b+c rounds twice, as on the TPU and in eager
-# torch.  Never --use_fast_math.
+# torch; / and sqrtf IEEE-rounded and subnormals kept (the defaults,
+# stated because parity mode depends on them).  Never --use_fast_math.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "--prec-div=true", "--prec-sqrt=true",
+              "--ftz=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # per kernel library: seconds its build took in this process (0.0 when
@@ -57,39 +59,61 @@ def _key(src: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _paths(name: str) -> tuple[str, str]:
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{_key(src)}.so")
+
+
+def build_all(names) -> dict[str, str]:
+    """Compile each csrc/<name>.cu that has no up-to-date library, one
+    nvcc process per source, all started together; returns each
+    library's path."""
+    jobs, out = {}, {}
+    nvcc = None
+    for name in names:
+        src, so = _paths(name)
+        out[name] = so
+        if os.path.exists(so):
+            BUILD_SECONDS.setdefault(name, 0.0)
+            log = so[:-3] + ".log"
+            if os.path.exists(log):
+                with open(log) as f:
+                    PTXAS_LOG[name] = f.read()
+            continue
+        nvcc = nvcc or nvcc_path()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # build to a private name, then rename: concurrent builders of
+        # the same key never see a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp, src, so, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, src, so, t0) in jobs.items():
+        try:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src}:\n{stdout}\n{stderr}")
+                continue
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        PTXAS_LOG[name] = stderr
+        with open(so[:-3] + ".log", "w") as f:
+            f.write(stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless an up-to-date library exists;
     returns the library path."""
-    src = os.path.join(SRC_DIR, f"{name}.cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}-{_key(src)}.so")
-    log = so[:-3] + ".log"
-    if os.path.exists(so):
-        BUILD_SECONDS.setdefault(name, 0.0)
-        if os.path.exists(log):
-            with open(log) as f:
-                PTXAS_LOG[name] = f.read()
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: concurrent builders of the
-    # same key never see a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n"
-                               f"{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    PTXAS_LOG[name] = res.stderr
-    with open(log, "w") as f:
-        f.write(res.stderr)
-    return so
+    return build_all([name])[name]
 
 
 def load(name: str, sigs: dict) -> ctypes.CDLL:

@@ -6,21 +6,23 @@ masked back with `& 0xFFFFFFFF` (or `& 0x7FFFFFFF` where the reference
 keeps 31 bits).  Products of a 32-bit and a 31-bit value fit in int64;
 the full 32x32-bit products of `pixel_seed` are split into 16-bit
 halves so nothing overflows.  `INV_MOD_F` stays a multiply, exactly as
-the JAX package has it.
+the JAX package has it.  `INV_MOD_F` and `jump_coeffs` are copied from
+pwnfps_tpu/core/lcg.py.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from pwnfps_tpu.core.lcg import INV_MOD_F as _INV_MOD_F
 
 A = 25739
 C = 4
 MASK31 = 0x7FFFFFFF
 MASK32 = 0xFFFFFFFF
 MOD = 3759
-INV_MOD_F = float(_INV_MOD_F)     # f32-exact: float32(1) / float32(3759)
+# The reference builds with -ffast-math, which compiles `x / 3759.0f` into
+# `x * (1.0f/3759.0f)`; the multiply form is reproduced.  f32-exact.
+INV_MOD_F = float(np.float32(1.0) / np.float32(3759.0))
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -73,3 +75,19 @@ def pixel_seed(x: torch.Tensor, y: torch.Tensor, rwidth: int):
 def blur_row_seed(cy: torch.Tensor) -> torch.Tensor:
     """Per-scanline DoF blur seed (screen.h:82): cy*cy + 415135."""
     return (mul32(cy, cy) + 415135) & MASK32
+
+
+def jump_coeffs(n_max: int) -> tuple[np.ndarray, np.ndarray]:
+    """(A^k mod 2^31, C_k mod 2^31) uint32 arrays for k in [0, n_max]:
+    s_k = (A^k * s_0 + C_k) mod 2^31 for a 31-bit state s_0."""
+    ak = np.empty(n_max + 1, np.uint32)
+    ck = np.empty(n_max + 1, np.uint32)
+    a, c = np.uint32(1), np.uint32(0)
+    with np.errstate(over="ignore"):
+        for k in range(n_max + 1):
+            ak[k] = a
+            ck[k] = c
+            # next: A^(k+1), C_{k+1} = A*C_k + C  (all mod 2^31)
+            c = (np.uint32(A) * c + np.uint32(C)) & np.uint32(MASK31)
+            a = (a * np.uint32(A)) & np.uint32(MASK31)
+    return ak, ck

@@ -1,15 +1,27 @@
-// Multi-bounce wavefront tracer for Hopper (sm_90a), fast mode, one page.
+// Multi-bounce wavefront tracer for Hopper (sm_90a), one page, fast mode
+// and parity mode.
 //
 // Replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (behind
-// trace_wave_pallas) on the main path: for each ray, the whole
-// trace_wave_env of pwnfps_tpu/ops/tracer_core.py - DDA march with the
-// empty-space skip, ramps, fog, 2-high walls, quarter-turn portals,
-// hoisted sphere candidates, water-normal shading, the 5-draw reflect
+// trace_wave_pallas): for each ray, the whole trace_wave_env of
+// pwnfps_tpu/ops/tracer_core.py - DDA march, ramps, fog, 2-high walls,
+// quarter-turn portals, spheres, water-normal shading, the 5-draw reflect
 // jitter, the exp-fog unwind blend and the BGRA8 pack.  It follows the
 // plain torch tracer pwnfps_tpu_torch/ops/tracer_core.py expression for
-// expression and uses the device functions torch's CUDA ops call (rsqrtf,
-// IEEE 1/x and sqrtf, sinf, cosf, expf), so the two agree bit for bit
-// wherever those functions do.
+// expression, in two instances of one template:
+//
+//   * fast (entry pwnfps_trace): the empty-space skip, hoisted sphere
+//     candidates, and the device functions torch's CUDA ops call (rsqrtf,
+//     IEEE 1/x and sqrtf, sinf, cosf, expf), so kernel and plain tracer
+//     agree bit for bit wherever those functions do;
+//   * parity (entry pwnfps_trace_parity; the TPU kernel's _parity_math,
+//     tracer_pallas.py:446, and _sphere_pass_pallas, :491): unit steps,
+//     the reference's per-cell sphere-bucket scan, and bit-exact math -
+//     the SSE rsqrt/rcp tables (core/approx.py), integer-exact division
+//     and sqrt (core/ieee.py) and the pinned libm (core/detmath.py), all
+//     in integer ops and single IEEE adds and multiplies, so its bits
+//     depend on no device math library: it equals the plain parity
+//     tracer, which the CPU tests hold bit for bit to the scalar spec
+//     ops/tracer_ref.ScalarTracer(pinned=True).
 //
 // What bounds it on the H100: divergence and latency, not bandwidth.  A
 // ray's work is a data-dependent loop (a few steps for a wall hit, up to
@@ -17,6 +29,12 @@
 // gather from the 16 KB cell table, and ~40 scalars of march state plus
 // the unwind records live in registers.  So a warp runs as long as its
 // longest ray, and occupancy is set by the register count.
+//
+// Parity mode adds integer work: a 27-step restoring division and two
+// 25-step square roots per bucket slot a lane's ray hits, and table
+// gathers for every rsqrt and rcp.  The two tables (48 KB) sit in shared
+// memory, loaded once per block: their index is data dependent, so
+// __constant__ memory would serialise a warp's lookups.
 //
 // Design, kept simple: one thread per ray over the flat [n] ray list
 // (row-major pixels on the main path), 128 threads a block.  The TPU
@@ -30,10 +48,12 @@
 // (tracer_core.py:1795-1801).  Warp-coherent scheduling, ray compaction
 // and shared-memory cell tables are later work.
 //
-// Numerics: build with --fmad=false (ops/../_build.py) so a*b+c rounds
-// twice, as on the TPU and in eager torch; float literals carry the f
-// suffix so nothing is promoted to double; float-to-int conversions
-// saturate (__float2int_rz); maxima propagate NaN like jnp.maximum.
+// Numerics: build with --fmad=false, -prec-div=true, -prec-sqrt=true and
+// -ftz=false (_build.py) so a*b+c rounds twice, as on the TPU and in
+// eager torch, and / and sqrtf are IEEE; float literals carry the f
+// suffix so nothing is promoted to double, and the pinned libm's
+// constants are given by their bits; float-to-int conversions saturate
+// (__float2int_rz); maxima propagate NaN like jnp.maximum.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,9 +80,13 @@ constexpr float PI_F = 3.14159265358979323846f;
 constexpr int NSPH_MAX = 16;
 constexpr int SPH_COLS = 16;
 // sphere-record columns (ops/world.py)
-constexpr int SX = 0, SY = 1, SZ = 2, SREFL = 4, SCB = 5, SBX1 = 8,
-              SBX2 = 9, SBZ1 = 10, SBZ2 = 11, SRAD2 = 12, SINVR2 = 13;
+constexpr int SX = 0, SY = 1, SZ = 2, SR = 3, SREFL = 4, SCB = 5,
+              SBX1 = 8, SBX2 = 9, SBZ1 = 10, SBZ2 = 11, SRAD2 = 12,
+              SINVR2 = 13;
 constexpr int MAX_WAVES = 8;
+constexpr int BLOCK = 128;
+// SSE emulation tables (core/approx.py): rsqrt [2 * 4096], rcp [4096]
+constexpr int RSQ_N = 8192, RCP_N = 4096, APPROX_BLOCK = 11;
 
 // palette (b, g, r) per colour id (core/config.py COL_*)
 __constant__ float PAL[4][3] = {{30.0f, 30.0f, 0.0f},
@@ -77,6 +101,11 @@ struct World {
     float bx, bz, brq2;      // bound circle centre and radius^2 + slack
     int n_spheres;
     bool skip;
+    // parity mode only
+    const int32_t* buckets;  // [4096 * k_bucket] sphere ids, -1 pad
+    int k_bucket;
+    const uint32_t* rsq_tab; // shared memory
+    const uint32_t* rcp_tab; // shared memory
 };
 
 struct Seg {
@@ -110,10 +139,198 @@ __device__ __forceinline__ int fetch(const World& w, int cx, int cz) {
     return __ldg(w.ent + flat_index(cx, cz));
 }
 
+// ---- parity math: bit-exact emulations (core/approx.py, core/ieee.py,
+// core/detmath.py), integer ops and single IEEE adds and multiplies ----
+
+// _mm_rsqrt_ps: table by exponent parity and the top 12 mantissa bits,
+// times 2^-k; the scale's bits wrap in 32 bits as in uint32
+__device__ __forceinline__ float rsq_emu(const World& w, float x) {
+    const uint32_t bits = __float_as_uint(x);
+    const int d = (int)(bits >> 23) - 127;
+    const int k = d >> 1;                 // arithmetic: floor(d / 2)
+    const int p = d - 2 * k;
+    const float y = __uint_as_float(
+        w.rsq_tab[p * 4096 + (int)((bits & 0x7FFFFFu) >> APPROX_BLOCK)]);
+    return y * __uint_as_float((uint32_t)(127 - k) << 23);
+}
+
+// _mm_rcp_ps: table by the top 12 mantissa bits, times 2^-k
+__device__ __forceinline__ float rcp_emu(const World& w, float x) {
+    const uint32_t bits = __float_as_uint(x);
+    const int k = (int)(bits >> 23) - 127;
+    const float y = __uint_as_float(
+        w.rcp_tab[(bits & 0x7FFFFFu) >> APPROX_BLOCK]);
+    return y * __uint_as_float((uint32_t)(127 - k) << 23);
+}
+
+// round to nearest even on guard bit g and the sticky flag; returns the
+// f32 bits, or ok = false when the exponent leaves the normal range
+__device__ __forceinline__ uint32_t round_pack(int e, int m24, int g,
+                                               bool sticky) {
+    if (g == 1 && (sticky || (m24 & 1) == 1)) m24 += 1;
+    if (m24 >= (1 << 24)) {
+        m24 >>= 1;
+        e += 1;
+    }
+    return (e > 0 && e < 255)
+        ? ((uint32_t)e << 23) | (uint32_t)(m24 & 0x7FFFFF) : 0xFFFFFFFFu;
+}
+
+// correctly rounded a / b for positive normal f32 (ieee.div_rn): 27-step
+// restoring division of the mantissas; other lanes take IEEE a / b
+__device__ float div_rn(float a, float b) {
+    const int ab = __float_as_int(a), bb = __float_as_int(b);
+    const int ea = (ab >> 23) & 0xFF, eb = (bb >> 23) & 0xFF;
+    const int ma = (ab & 0x7FFFFF) | 0x800000;
+    const int mb = (bb & 0x7FFFFF) | 0x800000;
+    int q = ma >= mb ? 1 : 0;
+    int r = q ? ma - mb : ma;
+#pragma unroll
+    for (int i = 0; i < 27; ++i) {
+        r <<= 1;
+        const int ge = r >= mb ? 1 : 0;
+        if (ge) r -= mb;
+        q = (q << 1) | ge;
+    }
+    const bool big = q >= (1 << 27);
+    const int e = ea - eb + (big ? 127 : 126);
+    const int m24 = big ? q >> 4 : q >> 3;
+    const int g = big ? (q >> 3) & 1 : (q >> 2) & 1;
+    const int low = big ? q & 7 : q & 3;
+    const uint32_t out = round_pack(e, m24, g, low != 0 || r != 0);
+    const bool ok = ea > 0 && ea < 255 && eb > 0 && eb < 255 && ab >= 0
+        && bb >= 0 && out != 0xFFFFFFFFu;
+    return ok ? __uint_as_float(out) : a / b;
+}
+
+// correctly rounded sqrt for positive normal f32 (ieee.sqrt_rn):
+// digit-by-digit root of the mantissa; other lanes take IEEE sqrtf
+__device__ float sqrt_rn(float x) {
+    const int xb = __float_as_int(x);
+    const int e = (xb >> 23) & 0xFF;
+    const int m = (xb & 0x7FFFFF) | 0x800000;
+    const int d = e - 127;
+    const int odd = d & 1;
+    const int mm = odd ? m << 1 : m;      // < 2^25
+    const int k = (d - odd) >> 1;         // floor((e - 127) / 2)
+    int root = 0, rem = 0;
+#pragma unroll
+    for (int p = 0; p < 25; ++p) {
+        const int sft = 23 - 2 * p;
+        const int pair = sft >= 0 ? (mm >> sft) & 3
+            : (sft == -1 ? (mm & 1) << 1 : 0);
+        rem = (rem << 2) | pair;
+        const int trial = (root << 2) | 1;
+        const int ge = rem >= trial ? 1 : 0;
+        if (ge) rem -= trial;
+        root = (root << 1) | ge;
+    }
+    const uint32_t out = round_pack(127 + k, root >> 1, root & 1, rem != 0);
+    const bool ok = e > 0 && e < 255 && xb >= 0 && out != 0xFFFFFFFFu;
+    return ok ? __uint_as_float(out) : sqrtf(x);
+}
+
+// the pinned libm (detmath.py): Cody-Waite reduction by pi/2 split in
+// three, fdlibm float kernels; constants by their f32 bits
+__device__ __forceinline__ float cf(uint32_t bits) {
+    return __uint_as_float(bits);
+}
+
+__device__ __forceinline__ void reduce_pio2(float x, float& r, int& n) {
+    const float j = floorf((x * cf(0x3f22f983u)) + 0.5f);  // 2/pi
+    r = x - (j * cf(0x3fc90000u));
+    r = r - (j * cf(0x39fda000u));
+    r = r - (j * cf(0x33a22169u));
+    n = __float2int_rz(j) & 3;
+}
+
+__device__ __forceinline__ float kernel_sin(float r, float r2) {
+    float p = cf(0xb9500d01u) + (r2 * cf(0x3638ef1bu));
+    p = cf(0x3c088889u) + (r2 * p);
+    p = cf(0xbe2aaaabu) + (r2 * p);
+    return r + ((r * r2) * p);
+}
+
+__device__ __forceinline__ float kernel_cos(float r, float r2) {
+    float p = cf(0x37d00d01u) + (r2 * cf(0xb493f27cu));
+    p = cf(0xbab60b61u) + (r2 * p);
+    p = cf(0x3d2aaaabu) + (r2 * p);
+    return (1.0f - (r2 * 0.5f)) + ((r2 * r2) * p);
+}
+
+__device__ float sin_det(float x) {
+    float r;
+    int n;
+    reduce_pio2(x, r, n);
+    const float r2 = r * r;
+    const float ks = kernel_sin(r, r2), kc = kernel_cos(r, r2);
+    return n == 0 ? ks : n == 1 ? kc : n == 2 ? -ks : -kc;
+}
+
+__device__ float cos_det(float x) {
+    float r;
+    int n;
+    reduce_pio2(x, r, n);
+    const float r2 = r * r;
+    const float ks = kernel_sin(r, r2), kc = kernel_cos(r, r2);
+    return n == 0 ? kc : n == 1 ? -ks : n == 2 ? -kc : ks;
+}
+
+__device__ float exp_det(float x) {
+    const float k = floorf((x * cf(0x3fb8aa3bu)) + 0.5f);   // 1/ln2
+    float r = x - (k * cf(0x3f317000u));
+    r = r - (k * cf(0x3805f000u));
+    r = r - (k * cf(0x325f473eu));
+    float p = cf(0x3d2aaaabu) + (r * cf(0x3c088889u));
+    p = cf(0x3e2aaaabu) + (r * p);
+    p = 0.5f + (r * p);
+    p = 1.0f + (r * p);
+    p = 1.0f + (r * p);
+    // int32 wraparound as in the plain version's int32 add
+    const int e = min(max((int)((uint32_t)__float2int_rz(k) + 127u), 0),
+                      254);
+    const float out = p * __uint_as_float((uint32_t)e << 23);
+    return e <= 1 ? 0.0f : out;
+}
+
+// ---- the two modes' math --------------------------------------------------
+
+template <bool P>
+__device__ __forceinline__ float m_rsq(const World& w, float x) {
+    return P ? rsq_emu(w, x) : rsqrtf(x);
+}
+
+template <bool P>
+__device__ __forceinline__ float m_rcp(const World& w, float x) {
+    return P ? rcp_emu(w, x) : 1.0f / x;
+}
+
+template <bool P>
+__device__ __forceinline__ float m_div(float a, float b) {
+    return P ? div_rn(a, b) : a / b;
+}
+
+template <bool P>
+__device__ __forceinline__ float m_sin(float x) {
+    return P ? sin_det(x) : sinf(x);
+}
+
+template <bool P>
+__device__ __forceinline__ float m_cos(float x) {
+    return P ? cos_det(x) : cosf(x);
+}
+
+template <bool P>
+__device__ __forceinline__ float m_exp(float x) {
+    return P ? exp_det(x) : expf(x);
+}
+
 // v_normalise: s = (x^2 + z^2) + y^2, times rsqrt
-__device__ __forceinline__ void normalise(float& x, float& y, float& z) {
+template <bool P>
+__device__ __forceinline__ void normalise(const World& w, float& x,
+                                          float& y, float& z) {
     const float s = (x * x + z * z) + y * y;
-    const float r = rsqrtf(s);
+    const float r = m_rsq<P>(w, s);
     x = x * r;
     y = y * r;
     z = z * r;
@@ -188,7 +405,7 @@ __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
             const float ay = fy + s.ry * w_sd;
             const float az = fz + s.rz * w_sd;
             float nx = ax - r[SX], ny = ay - r[SY], nz = az - r[SZ];
-            normalise(nx, ny, nz);
+            normalise<false>(w, nx, ny, nz);
             float diff = fmax_nan(-((s.rx * nx + s.rz * nz) + s.ry * ny),
                                   0.0f);
             diff = 0.2f + 0.8f * diff;
@@ -204,12 +421,64 @@ __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
     return sphere_rel(w, s.px, s.pz, s.rx, s.rz) ? 2 : 0;
 }
 
+// Parity mode: the reference's per-cell sphere tests (trace.h:252-296,
+// tracer_core.sphere_pass).  An active lane in a bucketed cell tests the
+// cell's slots k = 0 .. k_bucket-1 in order (valid: k < the cell's count
+// and a sphere in the slot); the last strictly closer hit wins.
+__device__ void sphere_pass(const World& w, Seg& s) {
+    if (s.cx < 0 || s.cx >= 64 || s.cz < 0 || s.cz >= 64) return;
+    const int nsph = min((s.ent >> 15) & 0x1F, w.k_bucket);
+    const int32_t* slots = w.buckets + (s.cz * 64 + s.cx) * w.k_bucket;
+    bool nw = false;
+    float w_sd = 0.0f;
+    int w_idx = 0;
+    for (int k = 0; k < nsph; ++k) {
+        int si = __ldg(slots + k);
+        if (si < 0) continue;
+        si = min(si, w.n_spheres - 1);
+        const float* r = w.sph + si * SPH_COLS;
+        const float rad2 = r[SR] * r[SR];
+        const float relx = r[SX] - s.px, rely = r[SY] - s.py,
+                    relz = r[SZ] - s.pz;
+        const float dist2 = (relx * relx + relz * relz) + rely * rely;
+        const float dot = (relx * s.rx + relz * s.rz) + rely * s.ry;
+        const float calcrad2 = dist2 - dot * dot;
+        if (!(dot > 0.0f && calcrad2 < rad2)) continue;
+        const float sph_dist = sqrt_rn(dist2) - sqrt_rn(fmax_nan(
+            1.0f - div_rn(calcrad2, rad2 > 0.0f ? rad2 : 1.0f), 0.0f));
+        const float cand = sph_dist + s.cdist;
+        if (s.aux_dist == -1.0f || cand < s.aux_dist) {
+            s.aux_dist = cand;
+            nw = true;
+            w_sd = sph_dist;
+            w_idx = si;
+        }
+    }
+    if (nw) {
+        const float* r = w.sph + w_idx * SPH_COLS;
+        const float ax = s.px + s.rx * w_sd;
+        const float ay = s.py + s.ry * w_sd;
+        const float az = s.pz + s.rz * w_sd;
+        float nx = ax - r[SX], ny = ay - r[SY], nz = az - r[SZ];
+        normalise<true>(w, nx, ny, nz);
+        float diff = fmax_nan(-((s.rx * nx + s.rz * nz) + s.ry * ny),
+                              0.0f);
+        diff = 0.2f + 0.8f * diff;
+        s.apx = ax;
+        s.apy = ay;
+        s.apz = az;
+        s.aux_idx = w_idx;
+        s.aux_diff = diff;
+    }
+}
+
 // segment prologue (tracer_core._init_march + init_segment)
+template <bool P>
 __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
                              float fz, float irx, float iry, float irz,
                              bool active) {
     float rx = irx, ry = iry, rz = irz;
-    normalise(rx, ry, rz);
+    normalise<P>(w, rx, ry, rz);
     auto clamp = [](float c) {
         return (c > -EPS && c < EPS) ? (c < 0.0f ? -EPS : EPS) : c;
     };
@@ -221,9 +490,9 @@ __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
     s.gx = irx < 0.0f ? -1 : 1;
     s.gy = iry < 0.0f ? -1 : 1;
     s.gz = irz < 0.0f ? -1 : 1;
-    s.ix = 1.0f / fabsf(rx);
-    s.iy = 1.0f / fabsf(ry);
-    s.iz = 1.0f / fabsf(rz);
+    s.ix = m_rcp<P>(w, fabsf(rx));
+    s.iy = m_rcp<P>(w, fabsf(ry));
+    s.iz = m_rcp<P>(w, fabsf(rz));
     const float wdx = fx - (float)s.cx;
     const float wdz = fz - (float)s.cz;
     s.wx = (rx >= 0.0f ? 1.0f - wdx : wdx) * s.ix;
@@ -249,13 +518,18 @@ __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
     s.tmeta = 0;
 }
 
-// One DDA step of an active lane (tracer_core.segment_body, fast mode)
+// One DDA step of an active lane (tracer_core.segment_body).  Fast mode
+// refreshes its hoisted candidates after line changes (has_sph: hoisted
+// candidates exist); parity mode scans the cell's sphere buckets.
+template <bool P>
 __device__ void segment_body(const World& w, Seg& s) {
-    const bool has_sph = w.n_spheres > 0;
+    const bool has_sph = !P && w.n_spheres > 0;
     const int cls = s.ent & 0xF;
 
-    // ---- rare events: sphere refresh, portal targets, ramp tilt ----
-    if (has_sph && (s.sph_dirty & 1)) {
+    // ---- rare events: sphere refresh or scan, portal targets, ramp ----
+    if (P) {
+        if (w.k_bucket > 0) sphere_pass(w, s);
+    } else if (has_sph && (s.sph_dirty & 1)) {
         s.sph_dirty = sphere_all(w, s, true, true);
     }
     const bool is_portal = cls == PORTAL;
@@ -311,7 +585,7 @@ __device__ void segment_body(const World& w, Seg& s) {
         tilt = rampx ? coef_x * s.rx : coef_z * s.rz;
         const float ry2 = s.ry + tilt;
         const float ay2 = ry2 < 0.0f ? -ry2 : ry2;
-        wy_ramp = (ry2 >= 0.0f ? 1.0f - s.py : s.py) * (1.0f / ay2);
+        wy_ramp = (ry2 >= 0.0f ? 1.0f - s.py : s.py) * m_div<P>(1.0f, ay2);
     }
 
     const bool is_floorish = bit(FLOORISH, cls);
@@ -327,7 +601,7 @@ __device__ void segment_body(const World& w, Seg& s) {
     const float wx = s.wx, wy0 = s.wy, wz = s.wz;
     float wxe = wx, wze = wz;
     int kx = 0, kz = 0;
-    if (w.skip) {
+    if (!P && w.skip) {
         const int runx = (s.ent >> 7) & 0xF;
         const int runz = (s.ent >> 11) & 0xF;
         const int jx = __float2int_rz(floorf((wz - wx) * fabsf(s.rx)));
@@ -531,6 +805,7 @@ __device__ __forceinline__ float randfs(uint32_t& seed, float inv_mod) {
 // Terminal shading + bounce prep of a finished segment (seg_out_view +
 // shade_and_bounce).  icol: the parent's base colour; on return
 // (fx..rz) hold the bounce ray's origin and direction.
+template <bool P>
 __device__ Shade shade(const World& w, const Seg& s, const float icol[4],
                        uint32_t& seed, float sec, bool depth_ok,
                        float inv_mod, float& fx, float& fy, float& fz,
@@ -547,7 +822,7 @@ __device__ Shade shade(const World& w, const Seg& s, const float icol[4],
         nx = s.apx - r[SX];
         ny = s.apy - r[SY];
         nz = s.apz - r[SZ];
-        normalise(nx, ny, nz);
+        normalise<P>(w, nx, ny, nz);
         refl_s = r[SREFL];
         cb = s.aux_diff * r[SCB];
         cg = s.aux_diff * r[SCB + 1];
@@ -604,12 +879,12 @@ __device__ Shade shade(const World& w, const Seg& s, const float icol[4],
     const bool is_water = is_wall && ld == FYN;
     if (is_water) {
         const float ang = (PI_F * 2.0f)
-            * ((sinf((PI_F * 0.5f) * mpx) + cosf((PI_F * 0.5f) * mpz))
-               + sec);
-        nx = sinf(ang);
+            * ((m_sin<P>((PI_F * 0.5f) * mpx)
+                + m_cos<P>((PI_F * 0.5f) * mpz)) + sec);
+        nx = m_sin<P>(ang);
         ny = 38.0f;
-        nz = cosf(ang);
-        normalise(nx, ny, nz);
+        nz = m_cos<P>(ang);
+        normalise<P>(w, nx, ny, nz);
     }
     if (is_sph) {
         mpx = apx - rx * 0.001f;
@@ -621,7 +896,7 @@ __device__ Shade shade(const World& w, const Seg& s, const float icol[4],
         mrx = nx * rmul + rx;
         mry = ny * rmul + ry;
         mrz = nz * rmul + rz;
-        normalise(mrx, mry, mrz);
+        normalise<P>(w, mrx, mry, mrz);
     }
     // reflect blur: 5 draws, 2 discarded (trace.h:77-84)
     const float rb = 0.03f;
@@ -643,53 +918,89 @@ __device__ __forceinline__ uint32_t pack_chan(float c, int shift) {
     return ((uint32_t)r) << shift;
 }
 
-__global__ void __launch_bounds__(128)
-trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
-             const float* __restrict__ oz, const float* __restrict__ dx,
-             const float* __restrict__ dy, const float* __restrict__ dz,
-             const int32_t* __restrict__ seeds,
-             const int32_t* __restrict__ ent,
-             const int32_t* __restrict__ word,
-             const float* __restrict__ sph_g,
-             const float* __restrict__ bound, int n, int n_spheres,
-             int maxsteps, int reflect, int skip, float sec, float slack,
-             float inv_mod, int32_t* __restrict__ out_fb,
-             float* __restrict__ out_dist) {
-    __shared__ float sph[NSPH_MAX * SPH_COLS];
-    for (int k = threadIdx.x; k < n_spheres * SPH_COLS; k += blockDim.x)
-        sph[k] = sph_g[k];
+// Kernel arguments (one struct, so both entry points share a launcher)
+struct Params {
+    const float *ox, *oy, *oz, *dx, *dy, *dz;
+    const int32_t* seeds;
+    const int32_t* ent;
+    const int32_t* word;
+    const float* sph;
+    const float* bound;       // fast mode only
+    const int32_t* buckets;   // parity mode only
+    const uint32_t* rsq_tab;  // parity mode only
+    const uint32_t* rcp_tab;  // parity mode only
+    int n, n_spheres, k_bucket, maxsteps, reflect, skip;
+    float sec, slack, inv_mod;
+    int32_t* out_fb;
+    float* out_dist;
+};
+
+template <bool P>
+constexpr size_t smem_bytes() {
+    return sizeof(float) * NSPH_MAX * SPH_COLS
+        + (P ? sizeof(uint32_t) * (RSQ_N + RCP_N) : 0);
+}
+
+template <bool P>
+__global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
+    // shared memory: the sphere records, then (parity) the SSE tables
+    extern __shared__ uint32_t smem[];
+    float* sph = reinterpret_cast<float*>(smem);
+    uint32_t* rsq = smem + NSPH_MAX * SPH_COLS;
+    uint32_t* rcp = rsq + RSQ_N;
+    for (int k = threadIdx.x; k < a.n_spheres * SPH_COLS; k += blockDim.x)
+        sph[k] = a.sph[k];
+    if (P) {
+        for (int k = threadIdx.x; k < RSQ_N; k += blockDim.x)
+            rsq[k] = __ldg(a.rsq_tab + k);
+        for (int k = threadIdx.x; k < RCP_N; k += blockDim.x)
+            rcp[k] = __ldg(a.rcp_tab + k);
+    }
     __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+    if (i >= a.n) return;
 
     World w;
-    w.ent = ent;
-    w.word = word;
+    w.ent = a.ent;
+    w.word = a.word;
     w.sph = sph;
-    w.bx = bound[0];
-    w.bz = bound[2];
-    w.brq2 = bound[3] * bound[3] + slack;
-    w.n_spheres = n_spheres;
-    w.skip = skip != 0;
+    w.n_spheres = a.n_spheres;
+    if (P) {
+        w.bx = w.bz = w.brq2 = 0.0f;
+        w.skip = false;
+        w.buckets = a.buckets;
+        w.k_bucket = a.k_bucket;
+        w.rsq_tab = rsq;
+        w.rcp_tab = rcp;
+    } else {
+        w.bx = a.bound[0];
+        w.bz = a.bound[2];
+        w.brq2 = a.bound[3] * a.bound[3] + a.slack;
+        w.skip = a.skip != 0;
+        w.buckets = nullptr;
+        w.k_bucket = 0;
+        w.rsq_tab = w.rcp_tab = nullptr;
+    }
 
-    uint32_t seed = (uint32_t)seeds[i];
-    float fx = ox[i], fy = oy[i], fz = oz[i];
-    float rx = dx[i], ry = dy[i], rz = dz[i];
+    uint32_t seed = (uint32_t)a.seeds[i];
+    float fx = a.ox[i], fy = a.oy[i], fz = a.oz[i];
+    float rx = a.dx[i], ry = a.dy[i], rz = a.dz[i];
     float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
     float base[MAX_WAVES][4], refl[MAX_WAVES], fog[MAX_WAVES];
     float dist0 = 0.0f;
-    const int n_waves = reflect + 1;
+    const int n_waves = a.reflect + 1;
     int last = 0;
     Seg s;
     for (int k = 0; k < n_waves; ++k) {
-        init_segment(w, s, fx, fy, fz, rx, ry, rz, true);
-        if (n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
-        for (int step = 0; step < maxsteps && s.active; ++step)
-            segment_body(w, s);
+        init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true);
+        if (!P && a.n_spheres > 0)
+            s.sph_dirty = sphere_all(w, s, true, false);
+        for (int step = 0; step < a.maxsteps && s.active; ++step)
+            segment_body<P>(w, s);
         if (s.active) s.tmeta = T_SKY;
         if (k == 0) dist0 = s.cdist;
-        const Shade o = shade(w, s, icol, seed, sec, k < reflect, inv_mod,
-                              fx, fy, fz, rx, ry, rz);
+        const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
+                                 a.inv_mod, fx, fy, fz, rx, ry, rz);
         base[k][0] = o.b;
         base[k][1] = o.g;
         base[k][2] = o.r;
@@ -708,7 +1019,7 @@ trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     float col[4] = {base[last][0], base[last][1], base[last][2],
                     base[last][3]};
     for (int k = last - 1; k >= 0; --k) {
-        const float fogf = expf(-0.6f * fog[k]);
+        const float fogf = m_exp<P>(-0.6f * fog[k]);
         for (int c = 0; c < 4; ++c) {
             const float blended = col[c] * refl[k]
                 + base[k][c] * (1.0f - refl[k]);
@@ -716,15 +1027,36 @@ trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                                     : blended;
         }
     }
-    out_dist[i] = dist0;
-    out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
-                          | pack_chan(col[2], 16) | pack_chan(col[3], 24));
+    a.out_dist[i] = dist0;
+    a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
+                            | pack_chan(col[2], 16)
+                            | pack_chan(col[3], 24));
+}
+
+template <bool P>
+int launch(const Params& a, void* stream) {
+    if (a.n_spheres < 0 || a.n_spheres > NSPH_MAX || a.reflect < 0
+            || a.reflect + 1 > MAX_WAVES
+            || (P && (a.k_bucket < 0 || (a.k_bucket > 0
+                                         && a.n_spheres == 0))))
+        return (int)cudaErrorInvalidValue;
+    if (a.n <= 0) return (int)cudaGetLastError();
+    constexpr size_t smem = smem_bytes<P>();
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            trace_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int grid = (a.n + BLOCK - 1) / BLOCK;
+    trace_kernel<P><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Trace n rays.  Inputs: origins (ox, oy, oz) and directions (dx, dy, dz)
-// f32 [n], seeds i32 [n] (uint32 bits); the world tables of
+// Trace n rays in fast mode.  Inputs: origins (ox, oy, oz) and directions
+// (dx, dy, dz) f32 [n], seeds i32 [n] (uint32 bits); the world tables of
 // ops/world.py:world_to_torch.  Output: out_fb i32 [n] packed BGRA and
 // out_dist f32 [n] primary-wave distance.  Launches on `stream`; returns
 // cudaGetLastError().
@@ -736,17 +1068,63 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             int maxsteps, int reflect, int skip,
                             float sec, float slack, float inv_mod,
                             void* out_fb, void* out_dist, void* stream) {
-    if (n_spheres > NSPH_MAX || reflect + 1 > MAX_WAVES || reflect < 0)
-        return (int)cudaErrorInvalidValue;
-    if (n <= 0) return (int)cudaGetLastError();
-    const int block = 128;
-    const int grid = (n + block - 1) / block;
-    trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)ox, (const float*)oy, (const float*)oz,
-        (const float*)dx, (const float*)dy, (const float*)dz,
-        (const int32_t*)seeds, (const int32_t*)ent, (const int32_t*)word,
-        (const float*)sph, (const float*)bound, n, n_spheres, maxsteps,
-        reflect, skip, sec, slack, inv_mod, (int32_t*)out_fb,
-        (float*)out_dist);
-    return (int)cudaGetLastError();
+    Params a = {};
+    a.ox = (const float*)ox;
+    a.oy = (const float*)oy;
+    a.oz = (const float*)oz;
+    a.dx = (const float*)dx;
+    a.dy = (const float*)dy;
+    a.dz = (const float*)dz;
+    a.seeds = (const int32_t*)seeds;
+    a.ent = (const int32_t*)ent;
+    a.word = (const int32_t*)word;
+    a.sph = (const float*)sph;
+    a.bound = (const float*)bound;
+    a.n = n;
+    a.n_spheres = n_spheres;
+    a.maxsteps = maxsteps;
+    a.reflect = reflect;
+    a.skip = skip;
+    a.sec = sec;
+    a.slack = slack;
+    a.inv_mod = inv_mod;
+    a.out_fb = (int32_t*)out_fb;
+    a.out_dist = (float*)out_dist;
+    return launch<false>(a, stream);
+}
+
+// Trace n rays in parity mode.  As pwnfps_trace, less the bound and the
+// skip, plus the bucket table [4096 * k_bucket] i32 and the SSE rsqrt
+// [8192] and rcp [4096] tables (uint32 bits).
+extern "C" int pwnfps_trace_parity(
+        const void* ox, const void* oy, const void* oz, const void* dx,
+        const void* dy, const void* dz, const void* seeds, const void* ent,
+        const void* word, const void* sph, const void* buckets,
+        const void* rsq_tab, const void* rcp_tab, int n, int n_spheres,
+        int k_bucket, int maxsteps, int reflect, float sec, float inv_mod,
+        void* out_fb, void* out_dist, void* stream) {
+    Params a = {};
+    a.ox = (const float*)ox;
+    a.oy = (const float*)oy;
+    a.oz = (const float*)oz;
+    a.dx = (const float*)dx;
+    a.dy = (const float*)dy;
+    a.dz = (const float*)dz;
+    a.seeds = (const int32_t*)seeds;
+    a.ent = (const int32_t*)ent;
+    a.word = (const int32_t*)word;
+    a.sph = (const float*)sph;
+    a.buckets = (const int32_t*)buckets;
+    a.rsq_tab = (const uint32_t*)rsq_tab;
+    a.rcp_tab = (const uint32_t*)rcp_tab;
+    a.n = n;
+    a.n_spheres = n_spheres;
+    a.k_bucket = k_bucket;
+    a.maxsteps = maxsteps;
+    a.reflect = reflect;
+    a.sec = sec;
+    a.inv_mod = inv_mod;
+    a.out_fb = (int32_t*)out_fb;
+    a.out_dist = (float*)out_dist;
+    return launch<true>(a, stream);
 }

@@ -20,11 +20,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from pwnfps_tpu.core.lcg import jump_coeffs
-
 from .. import _build
 from ..core import lcg
-from .tracer_core import to_i32
+from ..core.ieee import to_i32
 
 # launches of the CUDA kernel since import (reset by callers that count)
 LAUNCHES = 0
@@ -43,7 +41,7 @@ def draw_tables(width: int) -> np.ndarray:
     g, j = x // 4, x % 4
     i = np.arange(4)
     d = 32 * g[:, None] + (4 * i[None, :] + j[:, None]) * 2      # [w, 4]
-    ak, ck = jump_coeffs(int(d.max()) + 2)
+    ak, ck = lcg.jump_coeffs(int(d.max()) + 2)
     tab = np.concatenate([ak[d].T, ck[d].T, ak[d + 1].T, ck[d + 1].T])
     return np.ascontiguousarray(tab.astype(np.int32))
 

@@ -3,9 +3,10 @@ trace_wave and tracer_pallas.py:trace_wave_pallas).
 
 `trace_wave_plain` runs the plain torch tracer (ops/tracer_core.py) on
 any device.  `trace_wave` takes it for CPU tensors and launches the
-CUDA kernel of csrc/tracer.cu for CUDA tensors; that kernel replaces
-the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (fast mode, one
-page).
+CUDA kernel of csrc/tracer.cu for CUDA tensors: entry `pwnfps_trace` in
+fast mode, `pwnfps_trace_parity` when `cfg.parity` is set.  The kernel
+replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (one
+page, both modes).
 """
 
 from __future__ import annotations
@@ -15,26 +16,32 @@ import ctypes
 import numpy as np
 import torch
 
-from pwnfps_tpu.core.config import RenderConfig
-
 from .. import _build
 from ..core import lcg
+from ..core.config import RenderConfig
 from .tracer_core import check_config, col_ftoint, trace_wave_env
 from .vec import V3
 from .world import SPH_COLS, TorchWorld
 
-# launches of the CUDA kernel since import (reset by callers that count)
+# launches of each kernel entry since import (reset by callers that
+# count): LAUNCHES fast mode, LAUNCHES_PARITY parity mode
 LAUNCHES = 0
+LAUNCHES_PARITY = 0
 # C entry points of csrc/tracer.cu
 _SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3}
+         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3,
+         "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+         + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3}
 
 
 def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
-                     iray: V3, seed: torch.Tensor, sec, pack: bool = False):
+                     iray: V3, seed: torch.Tensor, sec, pack: bool = False,
+                     counts: dict | None = None):
     """Plain torch trace.  seed: int32 [n] (uint32 bits).  Returns
-    (C4, dist), or (fb int32 BGRA bits, dist) with pack=True."""
-    col, dist = trace_wave_env(wt, cfg, ifrom, iray, lcg.u32(seed), sec)
+    (C4, dist), or (fb int32 BGRA bits, dist) with pack=True.  counts:
+    see tracer_core.run_segment."""
+    col, dist = trace_wave_env(wt, cfg, ifrom, iray, lcg.u32(seed), sec,
+                               counts)
     return (col_ftoint(col), dist) if pack else (col, dist)
 
 
@@ -45,13 +52,19 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed):
             raise ValueError("ifrom/iray components must be float32 [n]")
     if seed.shape != (n,) or seed.dtype != torch.int32:
         raise ValueError("seed must be int32 [n] (uint32 bits)")
-    tables = (wt.ent, wt.word, wt.sph, wt.bound)
+    tables = (wt.ent, wt.word, wt.sph, wt.bound, wt.buckets, wt.rsqrt_tab,
+              wt.rcp_tab)
     devs = {t.device for t in (*ifrom, *iray, seed, *tables)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
     if (wt.ent.shape != (4096,) or wt.word.shape != (4096,)
             or wt.sph.shape != (wt.n_spheres, SPH_COLS)
             or wt.bound.shape != (4,)
+            or wt.buckets.shape != (4096 * wt.k_bucket,)
+            or wt.rsqrt_tab.shape != (8192,) or wt.rcp_tab.shape != (4096,)
+            or any(t.dtype != torch.int32
+                   for t in (wt.ent, wt.word, wt.buckets, wt.rsqrt_tab,
+                             wt.rcp_tab))
             or not all(t.is_contiguous() for t in tables)):
         raise ValueError("world tables do not have world_to_torch's "
                          "shapes and layout")
@@ -59,27 +72,39 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed):
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
             seed: torch.Tensor, sec):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_PARITY
     n = ifrom.x.shape[0]
     dev = ifrom.x.device
-    ins = [t.contiguous() for t in (*ifrom, *iray)]
-    seed = seed.contiguous()
+    # the contiguous copies must outlive the launch: keep them here
+    keep = [t.contiguous() for t in (*ifrom, *iray, seed)]
+    ins = [t.data_ptr() for t in keep]
     fb = torch.empty(n, dtype=torch.int32, device=dev)
     dist = torch.empty(n, dtype=torch.float32, device=dev)
     lib = _build.load("tracer", _SIGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.pwnfps_trace(
-            *(t.data_ptr() for t in ins), seed.data_ptr(),
-            wt.ent.data_ptr(), wt.word.data_ptr(), wt.sph.data_ptr(),
-            wt.bound.data_ptr(),
-            n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
-            int(cfg.space_skip and wt.skip_ok),
-            float(np.float32(sec)), float(np.float32(wt.slack)),
-            lcg.INV_MOD_F, fb.data_ptr(), dist.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if cfg.parity:
+            err = lib.pwnfps_trace_parity(
+                *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
+                wt.sph.data_ptr(), wt.buckets.data_ptr(),
+                wt.rsqrt_tab.data_ptr(), wt.rcp_tab.data_ptr(),
+                n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
+                float(np.float32(sec)), lcg.INV_MOD_F, fb.data_ptr(),
+                dist.data_ptr(), stream)
+        else:
+            err = lib.pwnfps_trace(
+                *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
+                wt.sph.data_ptr(), wt.bound.data_ptr(),
+                n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
+                int(cfg.space_skip and wt.skip_ok),
+                float(np.float32(sec)), float(np.float32(wt.slack)),
+                lcg.INV_MOD_F, fb.data_ptr(), dist.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if cfg.parity:
+        LAUNCHES_PARITY += 1
+    else:
+        LAUNCHES += 1
     return fb, dist
 
 

@@ -1,12 +1,23 @@
-"""The wavefront tracer's semantics in plain torch (fast mode, one page).
+"""The wavefront tracer's semantics in plain torch (one page).
 
 A port of pwnfps_tpu/ops/tracer_core.py over [N] tensors: the same DDA
-march with the empty-space skip, ramps, fog, 2-high walls, quarter-turn
-portals, hoisted sphere candidates, shading, the reflect jitter and the
-backward unwind blend, each expression in the JAX package's order so
-that it rounds at the same places.  This is the plain version the CPU
-tests hold against the JAX package and against which the CUDA kernel
-(csrc/tracer.cu) is held on the card.
+march, ramps, fog, 2-high walls, quarter-turn portals, shading, the
+reflect jitter and the backward unwind blend, each expression in the JAX
+package's order so that it rounds at the same places.  This is the plain
+version the CPU tests hold against the JAX package and against which the
+CUDA kernel (csrc/tracer.cu) is held on the card.
+
+Two modes, as in the JAX package, selected by `cfg.parity`:
+
+  * fast: the hardware rsqrt/div/sqrt/sin/cos/exp, the empty-space
+    skip, and sphere candidates hoisted out of the DDA loop per ray
+    line (`sphere_all`);
+  * parity: the bit-exact math of `Math` (SSE-table rsqrt/rcp,
+    integer-exact div/sqrt, the pinned libm), unit steps, and the
+    reference's cell-driven sphere-bucket scan (`sphere_pass`).  On
+    every device this gives the bits of ops/tracer_ref.ScalarTracer
+    (pinned=True), since eager torch neither contracts FMAs nor
+    reassociates.
 
 What differs from the JAX module, none of it visible in the bits:
 
@@ -26,19 +37,20 @@ What differs from the JAX module, none of it visible in the bits:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from pwnfps_tpu.core.config import (COL_CEIL, COL_FLOOR, COL_MAGENTA,
-                                    COL_WALL, EPSILON, FXN, FXP, FYN, FYP,
-                                    FZN, FZP, RenderConfig)
-from pwnfps_tpu.ops import worlddev as W
-
-from ..core import lcg
+from ..core import detmath, lcg
+from ..core.approx import rcp_emu, rsqrt_emu
+from ..core.config import (COL_CEIL, COL_FLOOR, COL_MAGENTA, COL_WALL,
+                           EPSILON, FXN, FXP, FYN, FYP, FZN, FZP,
+                           RenderConfig)
+from ..core.ieee import div_rn, sqrt_rn, to_i32
+from . import worlddev as W
 from .vec import C4, V3, dot_sse, normalise_sse
-from .world import (SBX1, SBX2, SBZ1, SBZ2, SCB, SCG, SCR, SINVR2,
+from .world import (SBX1, SBX2, SBZ1, SBZ2, SCB, SCG, SCR, SINVR2, SR,
                     SRAD2, SREFL, SX, SY, SZ, TorchWorld)
 
 F32 = torch.float32
@@ -62,14 +74,33 @@ _RAMP = (1 << (W.RAMP_CR + 1)) - (1 << W.RAMP_GT)
 _FOGC = (1 << W.FOG) | (1 << W.TALLFOG)
 
 
-def to_i32(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> i32 truncation that saturates like XLA's and CUDA's
-    cvt.rzi: >= 2^31 -> INT_MAX, < -2^31 -> INT_MIN, NaN -> 0.  (torch
-    on the CPU gives INT_MIN for all three.)"""
-    big = x >= 2147483648.0
-    r = torch.where(big | torch.isnan(x), 0.0,
-                    x.clamp(min=-2147483648.0)).to(I32)
-    return torch.where(big, 2147483647, r)
+class Math(NamedTuple):
+    """Float-semantics bundle (tracer_core.Math): fast mode plugs the
+    hardware ops, parity mode the bit-exact emulations."""
+
+    rsq: Any
+    rcp: Any
+    div: Any
+    sqrt: Any
+    sin: Any
+    cos: Any
+    exp: Any
+
+
+FAST_MATH = Math(rsq=torch.rsqrt, rcp=lambda x: 1.0 / x,
+                 div=lambda a, b: a / b, sqrt=torch.sqrt, sin=torch.sin,
+                 cos=torch.cos, exp=torch.exp)
+
+
+def make_math(wt: TorchWorld, parity: bool) -> Math:
+    """tracer_jnp.make_math: the parity bundle reads the world's SSE
+    tables."""
+    if not parity:
+        return FAST_MATH
+    return Math(rsq=lambda x: rsqrt_emu(x, wt.rsqrt_tab),
+                rcp=lambda x: rcp_emu(x, wt.rcp_tab),
+                div=div_rn, sqrt=sqrt_rn, sin=detmath.sin_det,
+                cos=detmath.cos_det, exp=detmath.exp_det)
 
 
 def _bit(bits: int, c: torch.Tensor) -> torch.Tensor:
@@ -165,9 +196,11 @@ def sphere_rel(wt: TorchWorld, px, pz, vx, vz):
     return (d2xz - brq2) * l2 < dtxz * dtxz
 
 
-def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool):
-    """Candidate pass of every sphere against each lane's current line,
-    evaluated at the AABB entry point (tracer_core.py:298-534).
+def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool,
+               math: Math):
+    """Fast mode: candidate pass of every sphere against each lane's
+    current line, evaluated at the AABB entry point
+    (tracer_core.py:298-534).
     Returns (aux_dist, aux_apos, aux_idx, aux_diff, aux_t0, rel_bit)."""
     aux_dist = s.aux_dist
     zero = torch.zeros_like(s.pos.x)
@@ -197,7 +230,7 @@ def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool):
         dist2 = dot_sse(rel, rel)
         dot = dot_sse(rel, s.ray)
         calcrad2 = dist2 - dot * dot
-        sph_dist = torch.sqrt(dist2) - torch.sqrt(
+        sph_dist = math.sqrt(dist2) - math.sqrt(
             _max(1.0 - calcrad2 * r[SINVR2], 0.0))
         te_d = s.cdist + t_entry
         aux_c = sph_dist + te_d
@@ -215,7 +248,7 @@ def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool):
     w_t0 = s.cdist + w_te
     w_from = s.pos + s.ray * w_te
     apos = w_from + s.ray * w_sd
-    anorm = normalise_sse(apos - w_pos)
+    anorm = normalise_sse(apos - w_pos, math.rsq)
     diff = _max(-dot_sse(s.ray, anorm), 0.0)
     diff = 0.2 + 0.8 * diff
     rel_bit = torch.where(sphere_rel(wt, s.pos.x, s.pos.z, s.ray.x,
@@ -233,7 +266,81 @@ def _apply_aux(s: SegState, aux) -> SegState:
                       aux_diff=aux[3], aux_t0=aux[4], sph_dirty=aux[5])
 
 
-def sphere_view(wt: TorchWorld, s: SegState):
+def sphere_pass(wt: TorchWorld, s: SegState, math: Math,
+                counts: dict | None = None) -> SegState:
+    """Parity mode: the reference's per-cell sphere tests
+    (trace.h:252-296, tracer_jnp._sphere_pass).  Each active lane
+    standing in a bucketed cell tests the cell's bucket slots k = 0 ..
+    k_bucket-1 in order; a slot is valid when k < the cell's count and
+    it holds a sphere, and the last strictly closer hit wins (the
+    reference's insertion-order tie-break).  The winner's hit point and
+    diffuse factor are shaded once, from its exact inputs.
+
+    The per-(lane, slot) arithmetic runs batched over [lanes, slots]
+    (elementwise, so the same bits as slot by slot); only the ordered
+    winner selection loops over the slots."""
+    kb = wt.k_bucket
+    inb = (s.cx >= 0) & (s.cx < 64) & (s.cz >= 0) & (s.cz < 64)
+    scan = s.active & inb & (((s.ent >> 15) & 0x1F) > 0)
+    if kb == 0 or not bool(scan.any()):
+        return s
+    lanes = torch.nonzero(scan).flatten()
+    cidx = (s.cz[lanes] * 64 + s.cx[lanes]).long()
+    nsph = ((s.ent[lanes] >> 15) & 0x1F)[:, None]
+    si = wt.buckets.view(4096, kb)[cidx]                     # [m, kb]
+    slot = torch.arange(kb, dtype=I32, device=si.device)[None, :]
+    valid = (slot < nsph) & (si >= 0)
+    si = si.clamp(0, wt.n_spheres - 1)
+    sil = si.long()
+    pos = V3(*(c[lanes][:, None] for c in s.pos))
+    ray = V3(*(c[lanes][:, None] for c in s.ray))
+    spos = V3(*(wt.sph[:, c][sil] for c in (SX, SY, SZ)))
+    sr = wt.sph[:, SR][sil]
+    rad2 = sr * sr
+    rel = spos - pos
+    dist2 = dot_sse(rel, rel)
+    dot = dot_sse(rel, ray)
+    calcrad2 = dist2 - dot * dot
+    sph_dist = math.sqrt(dist2) - math.sqrt(_max(
+        1.0 - math.div(calcrad2, torch.where(rad2 > 0, rad2, 1.0)), 0.0))
+    hit = valid & (dot > 0.0) & (calcrad2 < rad2)
+    if counts is not None:
+        counts["slot_tests"] += int(valid.sum())
+        counts["slot_hits"] += int(hit.sum())
+    cdist = s.cdist[lanes]
+    aux = s.aux_dist[lanes]
+    new = torch.zeros_like(cdist, dtype=torch.bool)
+    w_sd = torch.zeros_like(cdist)
+    w_idx = torch.zeros_like(s.aux_idx[lanes])
+    for k in range(kb):
+        cand = sph_dist[:, k] + cdist
+        upd = hit[:, k] & ((aux == -1.0) | (cand < aux))
+        aux = torch.where(upd, cand, aux)
+        new = new | upd
+        w_sd = torch.where(upd, sph_dist[:, k], w_sd)
+        w_idx = torch.where(upd, si[:, k], w_idx)
+    pos = V3(*(c[:, 0] for c in pos))
+    ray = V3(*(c[:, 0] for c in ray))
+    w_pos = V3(*(wt.sph[:, c][w_idx.long()] for c in (SX, SY, SZ)))
+    apos = pos + ray * w_sd
+    anorm = normalise_sse(apos - w_pos, math.rsq)
+    diff = _max(-dot_sse(ray, anorm), 0.0)
+    diff = 0.2 + 0.8 * diff
+    old = V3(*(c[lanes] for c in s.aux_apos))
+    apos = apos.where(new, old)
+
+    def put(full, part):
+        return full.index_copy(0, lanes, part)
+
+    return s._replace(
+        aux_dist=put(s.aux_dist, aux),
+        aux_apos=V3(*(put(f, p) for f, p in zip(s.aux_apos, apos))),
+        aux_idx=put(s.aux_idx, torch.where(new, w_idx, s.aux_idx[lanes])),
+        aux_diff=put(s.aux_diff, torch.where(new, diff,
+                                             s.aux_diff[lanes])))
+
+
+def sphere_view(wt: TorchWorld, s: SegState, math: Math):
     """Winner rematerialization (tracer_core.make_sphere_view)."""
     zero = torch.zeros_like(s.aux_diff)
     one = torch.ones_like(zero)
@@ -244,7 +351,7 @@ def sphere_view(wt: TorchWorld, s: SegState):
     idx = s.aux_idx.long()
     w_pos = V3(*(wt.sph[:, c][idx] for c in (SX, SY, SZ)))
     w_refl = wt.sph[:, SREFL][idx]
-    anorm = normalise_sse(s.aux_apos - w_pos)
+    anorm = normalise_sse(s.aux_apos - w_pos, math.rsq)
     refl = torch.where(valid, w_refl, 0.25)
     norm = anorm.where(valid, V3(zero, zero, zero))
     col = C4(*(torch.where(valid, s.aux_diff * wt.sph[:, c][idx], one)
@@ -254,9 +361,9 @@ def sphere_view(wt: TorchWorld, s: SegState):
 
 # ---- segment init ----------------------------------------------------------
 
-def _init_march(wt: TorchWorld, ifrom: V3, iray: V3):
+def _init_march(wt: TorchWorld, ifrom: V3, iray: V3, math: Math):
     """trace_ray's prologue (tracer_core._init_march)."""
-    ray = normalise_sse(iray)
+    ray = normalise_sse(iray, math.rsq)
 
     def clamp(c):
         return torch.where((c > -_EPS) & (c < _EPS),
@@ -269,8 +376,8 @@ def _init_march(wt: TorchWorld, ifrom: V3, iray: V3):
     gx = torch.where(iray.x < 0.0, -one, one)
     gy = torch.where(iray.y < 0.0, -one, one)
     gz = torch.where(iray.z < 0.0, -one, one)
-    iavel = V3(1.0 / torch.abs(ray.x), 1.0 / torch.abs(ray.y),
-               1.0 / torch.abs(ray.z))
+    iavel = V3(math.rcp(torch.abs(ray.x)), math.rcp(torch.abs(ray.y)),
+               math.rcp(torch.abs(ray.z)))
     wd = V3(ifrom.x - cx.to(F32), ifrom.y, ifrom.z - cz.to(F32))
 
     def flip(w, c):
@@ -281,9 +388,10 @@ def _init_march(wt: TorchWorld, ifrom: V3, iray: V3):
     return ray, cx, cz, gx, gy, gz, iavel, wdist, fetch(wt, cx, cz)
 
 
-def init_segment(wt: TorchWorld, ifrom: V3, iray: V3, active) -> SegState:
-    (ray, cx, cz, gx, gy, gz, iavel, wdist, ent) = _init_march(wt, ifrom,
-                                                                iray)
+def init_segment(wt: TorchWorld, ifrom: V3, iray: V3, active,
+                 math: Math) -> SegState:
+    (ray, cx, cz, gx, gy, gz, iavel, wdist, ent) = _init_march(
+        wt, ifrom, iray, math)
     z1 = torch.zeros_like(ifrom.x)
     zi = torch.zeros_like(cx)
     return SegState(
@@ -334,7 +442,7 @@ def _portal_calc(wt: TorchWorld, s: SegState):
                 ix_r=ix_r, iz_r=iz_r)
 
 
-def _ramp_calc(s: SegState, cls):
+def _ramp_calc(s: SegState, cls, math: Math):
     """Ramp tilt + tilted-ray wdist.y (tracer_core.ramp_calc).  tilt is
     exactly +-0 on non-ramp lanes (zero coefficients)."""
     W_ = torch.where
@@ -345,23 +453,28 @@ def _ramp_calc(s: SegState, cls):
     tilt = W_(rampx, coef_x * s.ray.x, coef_z * s.ray.z)
     ry2 = W_(rampc, s.ray.y + tilt, s.ray.y)
     ay2 = W_(ry2 < 0.0, -ry2, ry2)
-    wyr = W_(ry2 >= 0.0, 1.0 - s.pos.y, s.pos.y) * (1.0 / ay2)
+    wyr = W_(ry2 >= 0.0, 1.0 - s.pos.y, s.pos.y) * math.div(
+        torch.ones_like(ay2), ay2)
     return tilt, wyr
 
 
-def segment_body(wt: TorchWorld, s: SegState, use_skip: bool) -> SegState:
-    """One DDA step for every lane (tracer_core.segment_body, fast mode,
-    one page).  Dead lanes come out unchanged in every field a later
-    stage reads."""
+def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
+                 hoisted: bool, math: Math,
+                 counts: dict | None = None) -> SegState:
+    """One DDA step for every lane (tracer_core.segment_body, one page).
+    hoisted: fast mode's per-line sphere candidates (else parity mode's
+    cell-driven bucket scan).  Dead lanes come out unchanged in every
+    field a later stage reads."""
     W_ = torch.where
-    has_sph = wt.n_spheres > 0
     cls = s.ent & 0xF
 
-    # ---- rare events: sphere refresh, portal targets, ramp tilt ----
-    if has_sph:
+    # ---- rare events: sphere refresh or scan, portal targets, ramp ----
+    if not hoisted:
+        s = sphere_pass(wt, s, math, counts)
+    else:
         refresh = (s.sph_dirty & 1) != 0
         if bool((refresh & s.active).any()):
-            a6 = sphere_all(wt, s, refresh, merge=True)
+            a6 = sphere_all(wt, s, refresh, merge=True, math=math)
             s = s._replace(aux_dist=a6[0], aux_apos=a6[1], aux_idx=a6[2],
                            aux_diff=a6[3], aux_t0=a6[4],
                            sph_dirty=W_(refresh, a6[5], s.sph_dirty))
@@ -370,7 +483,7 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool) -> SegState:
         p = _portal_calc(wt, s)
     else:
         p = None
-    tilt, wy_ramp = _ramp_calc(s, cls)
+    tilt, wy_ramp = _ramp_calc(s, cls, math)
 
     is_floorish = _bit(_FLOORISH, cls)
     is_tall = _bit(_TALL, cls)
@@ -378,7 +491,7 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool) -> SegState:
     is_wall = cls == W.WALL
     is_fogc = _bit(_FOGC, cls)
     has_aux = s.aux_dist != -1.0
-    fire = _max(s.aux_dist, s.aux_t0) if has_sph else s.aux_dist
+    fire = _max(s.aux_dist, s.aux_t0) if hoisted else s.aux_dist
 
     pos, ray, wdist, iavel = s.pos, s.ray, s.wdist, s.iavel
     gx, gy, gz = s.gx, s.gy, s.gz
@@ -473,7 +586,7 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool) -> SegState:
                  vx_r=ray.x, vz_r=ray.z, wx_r=wx, wz_r=wz,
                  ix_r=iavel.x, iz_r=iavel.z)
         nr = None
-    elif has_sph:
+    elif hoisted:
         # post-portal line relevance (the event branch's bit 22)
         nr = sphere_rel(wt, p["px_f"], p["pz_f"], p["vx_r"], p["vz_r"])
     pkind = p["pkind"]
@@ -570,7 +683,7 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool) -> SegState:
                    tmeta=new_tmeta.to(I32), active=s.active & ~term)
 
     # ---- hoisted-sphere line-change bookkeeping ----
-    if has_sph:
+    if hoisted:
         ev_shift = (stepped & (tr1 | tr2 | ramp_go)
                     & (((s.sph_dirty >> 1) & 1) != 0))
         ev = pgo2 | ev_shift
@@ -589,22 +702,34 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool) -> SegState:
                       active=s.active & ~end_sph)
 
 
-def run_segment(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
-                active) -> SegOut:
+def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
+                iray: V3, active, counts: dict | None = None) -> SegOut:
     """March every active lane until it terminates or the step budget
     runs out (tracer_core.run_segment).  The loop steps only the lanes
     still active, compacting the working set as lanes die; a dead lane's
-    state is final, so this is the same as stepping every lane."""
-    use_skip = cfg.space_skip and wt.skip_ok
-    s = init_segment(wt, ifrom, iray, active)
-    if wt.n_spheres > 0:
-        s = _apply_aux(s, sphere_all(wt, s, s.active, merge=False))
+    state is final, so this is the same as stepping every lane.
+
+    counts, when given, accumulates the work these rays needed (what the
+    kernel's bound is computed from): `segments` traced, DDA `steps`
+    taken by live lanes, and in parity mode the bucket `slot_tests` and
+    the `slot_hits` among them that run the exact div and sqrt."""
+    use_skip = cfg.space_skip and not cfg.parity and wt.skip_ok
+    hoisted = not cfg.parity and wt.n_spheres > 0
+    s = init_segment(wt, ifrom, iray, active, math)
+    if hoisted:
+        s = _apply_aux(s, sphere_all(wt, s, s.active, merge=False,
+                                     math=math))
     full = s
     idx = torch.nonzero(s.active).flatten()
     s = _tmap(lambda v: v[idx], s)
+    n_live = idx.numel()
+    if counts is not None:
+        counts["segments"] += n_live
     step = 0
     while step < cfg.maxsteps and idx.numel() > 0:
-        s = segment_body(wt, s, use_skip)
+        if counts is not None:
+            counts["steps"] += n_live
+        s = segment_body(wt, s, use_skip, hoisted, math, counts)
         step += 1
         live = s.active
         n_live = int(live.sum())
@@ -619,11 +744,11 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     full = _tmap2(lambda f, v: f.index_copy(0, idx, v), full, s)
     # still-active rays ran out of steps: sky colour = current ray dir
     full = full._replace(tmeta=torch.where(full.active, T_SKY, full.tmeta))
-    return seg_out_view(wt, full)
+    return seg_out_view(wt, full, math)
 
 
-def seg_out_view(wt: TorchWorld, s: SegState) -> SegOut:
-    refl, apos, anorm, acol = sphere_view(wt, s)
+def seg_out_view(wt: TorchWorld, s: SegState, math: Math) -> SegOut:
+    refl, apos, anorm, acol = sphere_view(wt, s, math)
     return SegOut(tkind=s.tmeta & 3, tldir=s.ldir,
                   tcolid=(s.tmeta >> 2) & 3, tfog=s.fog, tdist=s.cdist,
                   tpos=s.pos, tray=s.ray, aux_refl=refl, aux_pos=apos,
@@ -641,7 +766,7 @@ def _palette(colid, chan: int):
 
 
 def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
-                     depth_ok: bool):
+                     depth_ok: bool, math: Math):
     """Wall shading + bounce prep (tracer_core.shade_and_bounce, with
     the animated water normal)."""
     W_ = torch.where
@@ -676,10 +801,10 @@ def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
     mpos = (pos + V3(nudx, nudy, nudz)).where(is_wall, pos)
 
     is_water = is_wall & (ld == FYN)
-    ang = _PI_TWO * ((torch.sin(_PI_HALF * mpos.x)
-                      + torch.cos(_PI_HALF * mpos.z)) + sec)
-    wnorm = normalise_sse(V3(torch.sin(ang), torch.full_like(ang, 38.0),
-                             torch.cos(ang)))
+    ang = _PI_TWO * ((math.sin(_PI_HALF * mpos.x)
+                      + math.cos(_PI_HALF * mpos.z)) + sec)
+    wnorm = normalise_sse(V3(math.sin(ang), torch.full_like(ang, 38.0),
+                             math.cos(ang)), math.rsq)
     norm = wnorm.where(is_water, out.aux_norm)
 
     mpos = (out.aux_pos - ray * 0.001).where(is_sph, mpos)
@@ -687,7 +812,7 @@ def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
     mirror = is_water | is_sph
     rmul = -2.0 * (((0.0 + ray.x * norm.x) + ray.y * norm.y)
                    + ray.z * norm.z)
-    mirrored = normalise_sse(norm * rmul + ray)
+    mirrored = normalise_sse(norm * rmul + ray, math.rsq)
     mray = mirrored.where(mirror, mray)
 
     # reflect blur: 5 draws, 2 discarded (trace.h:77-84)
@@ -709,7 +834,7 @@ def check_config(cfg: RenderConfig) -> None:
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
     ignored."""
     missing = [name for name, bad in (
-        ("parity=True", cfg.parity), ("samples>1", cfg.samples != 1),
+        ("samples>1", cfg.samples != 1),
         ("fused=True", cfg.fused), ("profile=True", cfg.profile),
         ("probe", bool(cfg.probe)), ("water=False", not cfg.water),
         ("cam_page!=0", cfg.cam_page != 0)) if bad]
@@ -719,11 +844,12 @@ def check_config(cfg: RenderConfig) -> None:
 
 
 def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
-                   iray: V3, seed, sec):
+                   iray: V3, seed, sec, counts: dict | None = None):
     """Full multi-bounce trace (tracer_core.trace_wave_env, unfused,
     samples == 1).  seed: int64 uint32 states.  Returns (col: C4, dist).
     """
     check_config(cfg)
+    math = make_math(wt, cfg.parity)
     sec = float(np.float32(sec))
     one = torch.ones_like(ifrom.x)
     active = one > 0.0
@@ -732,11 +858,12 @@ def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     cur_from, cur_ray = ifrom, iray
     dist0 = None
     for k in range(cfg.n_waves):
-        out = run_segment(wt, cfg, cur_from, cur_ray, active)
+        out = run_segment(wt, cfg, math, cur_from, cur_ray, active,
+                          counts)
         if k == 0:
             dist0 = out.tdist
         base, refl, bounce, mpos, mray, seed = shade_and_bounce(
-            out, icol, seed, sec, k < cfg.reflect)
+            out, icol, seed, sec, k < cfg.reflect, math)
         bases.append(base)
         refls.append(refl)
         bounces.append(bounce)
@@ -747,7 +874,7 @@ def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     col = bases[-1]
     for k in range(cfg.n_waves - 2, -1, -1):
         blended = col * refls[k] + bases[k] * (1.0 - refls[k])
-        fogf = torch.exp(-0.6 * fogs[k])
+        fogf = math.exp(-0.6 * fogs[k])
         fogged = blended * fogf + (1.0 - fogf)
         res = fogged.where(fogs[k] != 0.0, blended)
         col = res.where(bounces[k], bases[k])

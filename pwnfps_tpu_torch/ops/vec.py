@@ -74,8 +74,9 @@ def dot_sse(a: V3, b: V3):
     return (a.x * b.x + a.z * b.z) + a.y * b.y
 
 
-def normalise_sse(v: V3) -> V3:
-    """v_normalise with the fast-mode rsqrt: s = (x^2 + z^2) + y^2."""
+def normalise_sse(v: V3, rsq) -> V3:
+    """v_normalise: s = (x^2 + z^2) + y^2, then the rsqrt `rsq` (the
+    hardware one in fast mode, the SSE table emulation in parity)."""
     s = (v.x * v.x + v.z * v.z) + v.y * v.y
-    r = torch.rsqrt(s)
+    r = rsq(s)
     return V3(v.x * r, v.y * r, v.z * r)

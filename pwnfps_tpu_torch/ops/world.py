@@ -13,9 +13,15 @@ torch tensors on one device:
   * `sph`   [n, 16] f32: the sphere SoA plus the per-sphere scalars the
     hoisted candidate pass derives (bucket AABB, r^2, 1/r^2);
   * `bound` [4] f32: centre and radius of the sphere bounding every
-    scene sphere (tracer_jnp.py:176-183).
+    scene sphere (tracer_jnp.py:176-183);
+  * parity mode's tables: `buckets` [4096 * k_bucket] i32, each cell's
+    sphere indices in insertion order (-1 pad; the JAX package's
+    [4096 * 15] table cut to the k_bucket slots the scan reads), and
+    the SSE `rsqrt_tab` [8192] and `rcp_tab` [4096] (uint32 bits held
+    in i32).  The scan reads each sphere's centre and radius from `sph`.
 
-Only single-page worlds are taken (the slice's main path).
+`world_to_torch` takes a numpy `WorldDev` and `WorldMeta` of either
+package (the same fields).  Only single-page worlds are taken.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pwnfps_tpu.ops import worlddev as W
+from . import worlddev as W
 
 # sph table columns
 SX, SY, SZ, SR, SREFL, SCB, SCG, SCR = range(8)
@@ -91,7 +97,11 @@ class TorchWorld:
     word: torch.Tensor      # [4096] i32 full channel words
     sph: torch.Tensor       # [n, 16] f32 sphere records
     bound: torch.Tensor     # [4] f32 bound centre + radius
+    buckets: torch.Tensor   # [4096 * k_bucket] i32 sphere ids, -1 pad
+    rsqrt_tab: torch.Tensor  # [8192] i32 (uint32 bits)
+    rcp_tab: torch.Tensor   # [4096] i32 (uint32 bits)
     n_spheres: int
+    k_bucket: int           # bucket slots the parity scan reads
     skip_ok: bool           # meta.has_clear: may the empty-space skip run
     slack: float            # meta.sph_slack: bound-gate slack
     # host copies of sph/bound as Python floats (f32-exact): the plain
@@ -104,6 +114,11 @@ class TorchWorld:
         return self.ent.device
 
 
+def _i32(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()
+                            ).to(device)
+
+
 def world_to_torch(world: W.WorldDev, meta: W.WorldMeta,
                    device) -> TorchWorld:
     if meta.n_pages != 1:
@@ -112,14 +127,22 @@ def world_to_torch(world: W.WorldDev, meta: W.WorldMeta,
     if n > NSPH_MAX:
         raise ValueError(f"{n} spheres exceed the {NSPH_MAX}-sphere cap")
     word = np.asarray(world.word, np.int32)
+    kb = int(meta.k_bucket)
+    buckets = np.asarray(world.buckets, np.int32).reshape(4096, -1)
+    if kb > buckets.shape[1] or (kb > 0 and buckets[:, :kb].max() >= n):
+        raise ValueError(f"bucket table does not fit k_bucket={kb} and "
+                         f"{n} spheres")
     sph = sphere_table(world, n)
     bound = sphere_bound(world, n)
     return TorchWorld(
-        ent=torch.from_numpy(decode_word_np(word)).to(device),
-        word=torch.from_numpy(word.copy()).to(device),
+        ent=_i32(decode_word_np(word), device),
+        word=_i32(word, device),
         sph=torch.from_numpy(sph).to(device),
         bound=torch.from_numpy(bound).to(device),
-        n_spheres=n, skip_ok=bool(meta.has_clear),
+        buckets=_i32(buckets[:, :kb].reshape(-1), device),
+        rsqrt_tab=_i32(np.asarray(world.rsqrt_tab, np.uint32), device),
+        rcp_tab=_i32(np.asarray(world.rcp_tab, np.uint32), device),
+        n_spheres=n, k_bucket=kb, skip_ok=bool(meta.has_clear),
         slack=float(meta.sph_slack),
         sph_host=tuple(tuple(float(v) for v in row) for row in sph),
         bound_host=tuple(float(v) for v in bound))

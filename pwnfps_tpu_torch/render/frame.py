@@ -1,9 +1,9 @@
-"""Frame renderer (pwnfps_tpu/render/frame.py, fast mode).
+"""Frame renderer (pwnfps_tpu/render/frame.py, one page).
 
 ray gen -> multi-bounce trace with in-kernel BGRA8 pack -> DoF blur.
 On CUDA tensors the trace and the blur are one kernel launch each
 (ops/tracer.py, ops/blur.py); on CPU tensors both take their plain
-torch versions.
+torch versions.  Fast mode and parity mode (`cfg.parity`).
 """
 
 from __future__ import annotations
@@ -11,30 +11,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pwnfps_tpu.core.config import RenderConfig
-from pwnfps_tpu.ops.worlddev import WorldMeta
-
 from ..core import lcg
+from ..core.config import RenderConfig
 from ..ops.blur import dof_blur
 from ..ops.tracer import trace_wave
 from ..ops.vec import V3
 from ..ops.world import TorchWorld
+from ..ops.worlddev import WorldMeta
 
 
-def gen_rays(rayb, rdx, rdy, width: int, height: int) -> V3:
-    """Fast-mode per-pixel ray directions as V3 of [h*w] tensors: pixel
-    (x, y) uses (rayb + y*rdy) + (x+1)*rdx (frame.py:41-55)."""
+def gen_rays(rayb, rdx, rdy, width: int, height: int,
+             parity: bool = False) -> V3:
+    """Per-pixel ray directions as V3 of [h*w] tensors (frame.py:41-70).
+
+    Pixel (x, y) uses (rayb + y*rdy) + (x+1)*rdx in fast mode.  Parity
+    mode replays the reference's serial accumulation (screen.h:12-24):
+    each 32-wide tile starts at (rayb + y*rdy) + (32t)*rdx and adds rdx
+    once per pixel, 32 separate adds in order (a scan would reassociate
+    them and round elsewhere)."""
     dev = rayb.device
     ys = torch.arange(height, dtype=torch.int32, device=dev).to(
         torch.float32)
-    xs = torch.arange(1, width + 1, dtype=torch.int32, device=dev).to(
+    if not parity:
+        xs = torch.arange(1, width + 1, dtype=torch.int32, device=dev).to(
+            torch.float32)
+
+        def comp(i):
+            v = (rayb[i] + ys[:, None] * rdy[i]) + xs[None, :] * rdx[i]
+            return v.reshape(-1)
+
+        return V3(comp(0), comp(1), comp(2))
+    tiles = -(-width // 32)
+    tx = (torch.arange(tiles, dtype=torch.int32, device=dev) * 32).to(
         torch.float32)
-
-    def comp(i):
-        v = (rayb[i] + ys[:, None] * rdy[i]) + xs[None, :] * rdx[i]
-        return v.reshape(-1)
-
-    return V3(comp(0), comp(1), comp(2))
+    # [3, h, tiles]: the three components advance together
+    b, dx, dy = (v.reshape(3, 1, 1) for v in (rayb, rdx, rdy))
+    acc = (b + ys[None, :, None] * dy) + tx[None, None, :] * dx
+    cols = []
+    for _ in range(32):
+        acc = acc + dx
+        cols.append(acc)
+    v = torch.stack(cols, dim=3).reshape(3, height, tiles * 32)
+    v = v[:, :, :width].reshape(3, -1)
+    return V3(v[0], v[1], v[2])
 
 
 def pixel_seeds(width: int, height: int, device) -> torch.Tensor:
@@ -55,14 +74,12 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     on the world's device.  origin/rayb/rdx/rdy: float32 [3] (numpy or
     tensors, as render/camera.camera_vectors gives them); sec: the clock.
     """
-    if cfg.parity:
-        raise NotImplementedError("parity mode is not ported yet")
     if meta.n_pages != 1:
         raise NotImplementedError("paged worlds are not ported yet")
     dev = world.device
     h, w = cfg.height, cfg.width
     rays = gen_rays(_vec3(rayb, dev), _vec3(rdx, dev), _vec3(rdy, dev),
-                    w, h)
+                    w, h, cfg.parity)
     n = h * w
     o = _vec3(origin, dev)
     ifrom = V3(*(o[i].expand(n) for i in range(3)))

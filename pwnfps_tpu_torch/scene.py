@@ -1,11 +1,19 @@
-"""The flagship scene: bench.py's frame (bench.py:55-103) on the demo
-level.
+"""The scenes the port drives, on the demo level.
 
-The default level `assets/levels/demo.txt` with the game's 14-sphere
-creature centred at (3.5, 0.3, 5.5), the camera at the level's spawn
-point yawing 0.07 rad per frame, and the clock advancing 0.016 s per
-frame.  Shared by chip_smoke.py and the tests, so both drive the same
-scene.
+Both use `assets/levels/demo.txt` with the game's 14-sphere creature
+centred at (3.5, 0.3, 5.5) and the camera at the level's spawn point:
+
+  * `flagship_scene`: bench.py's frame (bench.py:55-103), fast mode,
+    the camera yawing 0.07 rad and the clock advancing 0.016 s per
+    frame;
+  * `parity_scene`: BASELINE config #1 (benchmarks/configs.py:109-162),
+    parity mode at 320x240 by default, the camera yawing 0.8 rad and the
+    clock advancing 0.4 s per frame.  configs.py renders it on the
+    reference checkout's level.txt, which this repository does not
+    hold; the demo level stands in.
+
+Shared by chip_smoke.py and the tests, so both drive the same scenes.
+Each runs on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -15,15 +23,13 @@ import os
 
 import numpy as np
 
-from pwnfps_tpu.core.approx import SseTables
-from pwnfps_tpu.core.config import RenderConfig
-from pwnfps_tpu.ops import worlddev as W
-from pwnfps_tpu.render.camera import (camera_vectors, mat4_identity,
-                                      mat4_roty)
-from pwnfps_tpu.world.levelc import load_level
-from pwnfps_tpu.world.objects import ObjectPool
-
+from .core.approx import SseTables
+from .core.config import RenderConfig
+from .ops import worlddev as W
 from .ops.world import TorchWorld, world_to_torch
+from .render.camera import camera_vectors, mat4_identity, mat4_roty
+from .world.levelc import load_level
+from .world.objects import ObjectPool
 
 LEVEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "levels", "demo.txt")
@@ -54,15 +60,17 @@ class Scene:
     tworld: TorchWorld       # the same world as tensors on the device
     cfg: RenderConfig
     cam: np.ndarray          # 4x4 camera at frame 0
+    yaw_step: float          # camera yaw per frame, rad
+    sec_step: float          # clock advance per frame, s
 
     def frame_args(self, k: int):
         """(origin, rayb, rdx, rdy, sec) of frame k of the camera path,
-        float32 numpy, as bench.py builds them."""
+        float32 numpy, as bench.py and configs.py build them."""
         c = self.cam.copy()
-        mat4_roty(c, 0.07 * k)
+        mat4_roty(c, self.yaw_step * k)
         origin, rayb, rdx, rdy = camera_vectors(c, self.cfg.width,
                                                 self.cfg.height)
-        return origin, rayb, rdx, rdy, np.float32(0.016 * k)
+        return origin, rayb, rdx, rdy, np.float32(self.sec_step * k)
 
 
 def creature_pool(n: int = len(CREATURE), at=CREATURE_AT) -> ObjectPool:
@@ -74,17 +82,30 @@ def creature_pool(n: int = len(CREATURE), at=CREATURE_AT) -> ObjectPool:
     return pool
 
 
-def flagship_scene(width: int, height: int, device="cpu",
-                   n_spheres: int = len(CREATURE), **cfg_kw) -> Scene:
-    """The bench frame at width x height on `device`; cfg_kw override
-    RenderConfig fields (e.g. maxsteps for a small test)."""
+def _demo_scene(device, n_spheres: int, cfg: RenderConfig,
+                yaw_step: float, sec_step: float) -> Scene:
     lv = load_level(LEVEL)
     sph = creature_pool(n_spheres).prepare_render()
     world, meta = W.build_world(lv, sph, SseTables.load())
-    cfg = RenderConfig(width=width, height=height, parity=False, **cfg_kw)
     cam = mat4_identity()
     sx, sz = lv.spawn
     cam[3, :3] = (sx + 0.5, 0.5, sz + 0.5)
     return Scene(world=world, meta=meta,
                  tworld=world_to_torch(world, meta, device), cfg=cfg,
-                 cam=cam)
+                 cam=cam, yaw_step=yaw_step, sec_step=sec_step)
+
+
+def flagship_scene(width: int, height: int, device="cuda",
+                   n_spheres: int = len(CREATURE), **cfg_kw) -> Scene:
+    """The bench frame at width x height on `device`; cfg_kw override
+    RenderConfig fields (e.g. maxsteps for a small test)."""
+    cfg = RenderConfig(width=width, height=height, parity=False, **cfg_kw)
+    return _demo_scene(device, n_spheres, cfg, 0.07, 0.016)
+
+
+def parity_scene(width: int = 320, height: int = 240, device="cuda",
+                 n_spheres: int = len(CREATURE), **cfg_kw) -> Scene:
+    """BASELINE config #1's frame (configs.py:128: parity, reflect=2,
+    one DoF pass) on the demo level, at width x height on `device`."""
+    cfg = RenderConfig(width=width, height=height, parity=True, **cfg_kw)
+    return _demo_scene(device, n_spheres, cfg, 0.8, 0.4)

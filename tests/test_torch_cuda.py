@@ -6,11 +6,12 @@ need not have, so run these there with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Small versions of chip_smoke.py's phases 3-5: the blur kernel equals the
+Small versions of chip_smoke.py's phases 3-7: the blur kernel equals the
 plain pass bit for bit; the tracer kernel equals the plain tracer bit
 for bit in fb and zbuf (the same device math functions, no FMA
-contraction on either side); render_frame launches each kernel once per
-frame."""
+contraction on either side), in fast mode and in parity mode, where it
+also equals the plain parity tracer run on the host's CPU; render_frame
+launches each kernel once per frame."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ import torch
 from pwnfps_tpu_torch.ops import blur, tracer
 from pwnfps_tpu_torch.ops.vec import V3
 from pwnfps_tpu_torch.render.frame import gen_rays, pixel_seeds, render_frame
-from pwnfps_tpu_torch.scene import flagship_scene
+from pwnfps_tpu_torch.scene import flagship_scene, parity_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +38,8 @@ def _frame_inputs(sc, k, dev):
     c = sc.cfg
     rays = gen_rays(torch.from_numpy(rayb).to(dev),
                     torch.from_numpy(rdx).to(dev),
-                    torch.from_numpy(rdy).to(dev), c.width, c.height)
+                    torch.from_numpy(rdy).to(dev), c.width, c.height,
+                    c.parity)
     n = c.width * c.height
     ifrom = V3(*(torch.full((n,), float(origin[i]), device=dev)
                  for i in range(3)))
@@ -76,6 +78,43 @@ def test_tracer_kernel_matches_plain(dev, frame):
     msg = f"fb {fb_bit:.4f} bit-exact, zbuf {z_bit.item():.4f} bit-exact"
     assert torch.equal(fb_k, fb_p), msg
     assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32)), msg
+
+
+@pytest.mark.parametrize("frame", [0, 3])
+def test_parity_kernel_matches_plain(dev, frame):
+    sc = parity_scene(96, 64, dev)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, frame, dev)
+    before = (tracer.LAUNCHES, tracer.LAUNCHES_PARITY)
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True)
+    assert (tracer.LAUNCHES, tracer.LAUNCHES_PARITY) == \
+        (before[0], before[1] + 1)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+def test_parity_kernel_matches_host_plain(dev):
+    host = parity_scene(32, 24, "cpu")
+    card = parity_scene(32, 24, dev)
+    fb_h, z_h = tracer.trace_wave(host.tworld, host.cfg,
+                                  *_frame_inputs(host, 0, "cpu"), pack=True)
+    fb_k, z_k = tracer.trace_wave(card.tworld, card.cfg,
+                                  *_frame_inputs(card, 0, dev), pack=True)
+    assert torch.equal(fb_k.cpu(), fb_h)
+    assert torch.equal(z_k.cpu().view(torch.int32), z_h.view(torch.int32))
+
+
+def test_parity_render_frame_launches_parity_kernel_once(dev):
+    sc = parity_scene(64, 48, dev)
+    before = (tracer.LAUNCHES, tracer.LAUNCHES_PARITY, blur.LAUNCHES)
+    fb, zb = render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))
+    torch.cuda.synchronize()
+    assert (tracer.LAUNCHES - before[0], tracer.LAUNCHES_PARITY - before[1],
+            blur.LAUNCHES - before[2]) == (0, 1, 1)
+    assert fb.shape == (48, 64) and not bool(torch.isnan(zb).any())
+    assert torch.unique(fb).numel() > 100
 
 
 def test_render_frame_launches_each_kernel_once(dev):

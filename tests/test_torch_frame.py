@@ -8,7 +8,8 @@ gap (fb 99.97% bit-exact, one pixel off by at most 6 per byte; zbuf 64%
 bit-exact, within 3.9e-6 relative): fb at least 99.9% bit-exact, no
 byte off by more than one blur tap's weight (64 of 255); zbuf within
 1e-5 relative everywhere and at least half bit-exact.  Also: importing
-the port never imports jax, and CPU tensors never launch a kernel."""
+the port never imports jax or the JAX package, and CPU tensors never
+launch a kernel."""
 
 import dataclasses
 import os
@@ -35,7 +36,7 @@ FRAME = 3           # a frame of the bench camera path
 
 @pytest.fixture(scope="module")
 def frames():
-    sc = flagship_scene(W, H)
+    sc = flagship_scene(W, H, "cpu")
     args = sc.frame_args(FRAME)
     before = (tracer.LAUNCHES, blur.LAUNCHES)
     fb, zb = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
@@ -95,20 +96,31 @@ def test_unported_world_and_config_raise(frames):
                        "cpu")
     with pytest.raises(NotImplementedError):
         render_frame(sc.tworld, sc.meta,
-                     dataclasses.replace(sc.cfg, parity=True),
+                     dataclasses.replace(sc.cfg, samples=2),
+                     *sc.frame_args(0))
+    with pytest.raises(NotImplementedError):
+        render_frame(sc.tworld, sc.meta,
+                     dataclasses.replace(sc.cfg, parity=True, fused=True),
                      *sc.frame_args(0))
 
 
 def test_port_never_imports_jax():
+    """Importing every module of the port and chip_smoke.py, building both
+    scenes and rendering a tiny frame of each mode imports neither jax
+    nor any module of the JAX package pwnfps_tpu."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import pwnfps_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from pwnfps_tpu_torch.scene import flagship_scene\n"
-        "flagship_scene(8, 4)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.'))\n"
+        "import chip_smoke\n"
+        "from pwnfps_tpu_torch.render.frame import render_frame\n"
+        "from pwnfps_tpu_torch.scene import flagship_scene, parity_scene\n"
+        "for make in (flagship_scene, parity_scene):\n"
+        "    sc = make(8, 4, 'cpu', maxsteps=64)\n"
+        "    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'pwnfps_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -56,7 +56,7 @@ def _rays(n, seed0=11):
 def traced(request):
     """Both sides traced once per setting of cfg.space_skip (the
     empty-space skip changes which steps a ray takes)."""
-    sc = flagship_scene(32, 2, n_spheres=3, maxsteps=1000,
+    sc = flagship_scene(32, 2, "cpu", n_spheres=3, maxsteps=1000,
                         space_skip=request.param)
     froms, dirs, seeds = _rays(N)
     world = jax.tree.map(jnp.asarray, sc.world)
@@ -125,10 +125,11 @@ def test_to_i32_saturates_like_xla():
 
 
 def test_unported_config_raises():
-    sc = flagship_scene(8, 2, n_spheres=3)
+    sc = flagship_scene(8, 2, "cpu", n_spheres=3)
     rays = V3(*(torch.ones(4) for _ in range(3)))
     seeds = torch.zeros(4, dtype=torch.int32)
-    for kw in (dict(parity=True), dict(samples=2), dict(fused=True),
+    for kw in (dict(parity=True, samples=2), dict(samples=2),
+               dict(fused=True), dict(parity=True, fused=True),
                dict(profile=True), dict(probe="fire1"), dict(water=False),
                dict(cam_page=1)):
         cfg = dataclasses.replace(sc.cfg, **kw)
