@@ -1,5 +1,5 @@
-// Multi-bounce wavefront tracer for Hopper (sm_90a), one page, fast mode
-// and parity mode.
+// Multi-bounce wavefront tracer for Hopper (sm_90a): fast mode on one
+// page or a paged world atlas, parity mode on one page.
 //
 // Replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (behind
 // trace_wave_pallas): for each ray, the whole trace_wave_env of
@@ -12,7 +12,14 @@
 //   * fast (entry pwnfps_trace): the empty-space skip, hoisted sphere
 //     candidates, and the device functions torch's CUDA ops call (rsqrtf,
 //     IEEE 1/x and sqrtf, sinf, cosf, expf), so kernel and plain tracer
-//     agree bit for bit wherever those functions do;
+//     agree bit for bit wherever those functions do.  Paged worlds (the
+//     paged branch of the TPU kernel's _compact_fetch, tracer_pallas.py:
+//     321-368, and fetch_portal's dpage, :570-596): each thread keeps its
+//     ray's page in a register, starting on page0 (:648); a fetch reads
+//     page*4096 + the clamped local index, a portal moves the ray to the
+//     target page in bits 26-29 of its word, spheres exist only on
+//     sphere_page, and each bounce wave starts on the page where the wave
+//     before it ended.  A one-page world is page 0 throughout;
 //   * parity (entry pwnfps_trace_parity; the TPU kernel's _parity_math,
 //     tracer_pallas.py:446, and _sphere_pass_pallas, :491): unit steps,
 //     the reference's per-cell sphere-bucket scan, and bit-exact math -
@@ -26,7 +33,8 @@
 // What bounds it on the H100: divergence and latency, not bandwidth.  A
 // ray's work is a data-dependent loop (a few steps for a wall hit, up to
 // the 1000-step budget for sky rays, per bounce), every step a dependent
-// gather from the 16 KB cell table, and ~40 scalars of march state plus
+// gather from the cell table (16 KB a page; the 4-page maze's two tables
+// are 128 KB, which L1 and L2 hold), and ~40 scalars of march state plus
 // the unwind records live in registers.  So a warp runs as long as its
 // longest ray, and occupancy is set by the register count.
 //
@@ -95,11 +103,13 @@ __constant__ float PAL[4][3] = {{30.0f, 30.0f, 0.0f},
                                 {5.0f, 0.0f, 5.0f}};
 
 struct World {
-    const int32_t* ent;      // [4096] compact cell entries
-    const int32_t* word;     // [4096] full channel words
+    const int32_t* ent;      // [n_pages * 4096] compact cell entries
+    const int32_t* word;     // [n_pages * 4096] full channel words
     const float* sph;        // [n, 16] sphere records (shared memory)
     float bx, bz, brq2;      // bound circle centre and radius^2 + slack
     int n_spheres;
+    int n_pages;             // 1: one 64x64 grid
+    int sphere_page;         // the page every sphere lives on
     bool skip;
     // parity mode only
     const int32_t* buckets;  // [4096 * k_bucket] sphere ids, -1 pad
@@ -110,7 +120,7 @@ struct World {
 
 struct Seg {
     float px, py, pz, rx, ry, rz, ix, iy, iz, wx, wy, wz;
-    int ent, gx, gy, gz, cx, cz;
+    int ent, gx, gy, gz, cx, cz, page;
     float cdist, fog;
     int ldir;
     bool active;
@@ -130,13 +140,15 @@ __device__ __forceinline__ bool bit(int bits, int c) {
     return ((bits >> c) & 1) != 0;
 }
 
-__device__ __forceinline__ int flat_index(int cx, int cz) {
+// an out-of-bounds cell reads cell 0 of the ray's page
+__device__ __forceinline__ int flat_index(int cx, int cz, int page) {
     const bool inb = cx >= 0 && cx < 64 && cz >= 0 && cz < 64;
-    return inb ? cz * 64 + cx : 0;
+    return (inb ? cz * 64 + cx : 0) + page * 4096;
 }
 
-__device__ __forceinline__ int fetch(const World& w, int cx, int cz) {
-    return __ldg(w.ent + flat_index(cx, cz));
+__device__ __forceinline__ int fetch(const World& w, int cx, int cz,
+                                     int page) {
+    return __ldg(w.ent + flat_index(cx, cz, page));
 }
 
 // ---- parity math: bit-exact emulations (core/approx.py, core/ieee.py,
@@ -336,22 +348,25 @@ __device__ __forceinline__ void normalise(const World& w, float& x,
     z = z * r;
 }
 
-// XZ line vs the bound circle (tracer_core.make_sphere_rel)
+// XZ line vs the bound circle, on the sphere page only
+// (tracer_core.make_sphere_rel)
 __device__ __forceinline__ bool sphere_rel(const World& w, float px,
-                                           float pz, float vx, float vz) {
+                                           float pz, float vx, float vz,
+                                           int page) {
     const float rx = w.bx - px;
     const float rz = w.bz - pz;
     const float d2xz = rx * rx + rz * rz;
     const float dtxz = rx * vx + rz * vz;
     const float l2 = vx * vx + vz * vz;
-    return (d2xz - w.brq2) * l2 < dtxz * dtxz;
+    return (d2xz - w.brq2) * l2 < dtxz * dtxz && page == w.sphere_page;
 }
 
 // Hoisted sphere candidates of the lane's current line
 // (tracer_core.make_sphere_all run_full); `run` is the lane's mask &
-// active.  Returns the relevance bit (0 or 2).
+// active, and only a lane on the sphere page has candidates.  Returns
+// the relevance bit (0 or 2).
 __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
-    if (run) {
+    if (run && s.page == w.sphere_page) {
         float fire, best_aux;
         if (merge && s.aux_dist != -1.0f) {
             fire = fmax_nan(s.aux_dist, s.aux_t0);
@@ -418,7 +433,7 @@ __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
             s.aux_t0 = s.cdist + w_te;
         }
     }
-    return sphere_rel(w, s.px, s.pz, s.rx, s.rz) ? 2 : 0;
+    return sphere_rel(w, s.px, s.pz, s.rx, s.rz, s.page) ? 2 : 0;
 }
 
 // Parity mode: the reference's per-cell sphere tests (trace.h:252-296,
@@ -476,7 +491,7 @@ __device__ void sphere_pass(const World& w, Seg& s) {
 template <bool P>
 __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
                              float fz, float irx, float iry, float irz,
-                             bool active) {
+                             bool active, int page) {
     float rx = irx, ry = iry, rz = irz;
     normalise<P>(w, rx, ry, rz);
     auto clamp = [](float c) {
@@ -498,7 +513,8 @@ __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
     s.wx = (rx >= 0.0f ? 1.0f - wdx : wdx) * s.ix;
     s.wy = (ry >= 0.0f ? 1.0f - fy : fy) * s.iy;
     s.wz = (rz >= 0.0f ? 1.0f - wdz : wdz) * s.iz;
-    s.ent = fetch(w, s.cx, s.cz);
+    s.page = page;
+    s.ent = fetch(w, s.cx, s.cz, page);
     s.px = fx;
     s.py = fy;
     s.pz = fz;
@@ -535,11 +551,14 @@ __device__ void segment_body(const World& w, Seg& s) {
     const bool is_portal = cls == PORTAL;
     const bool is_ramp = bit(RAMPS, cls);
     int pkind = 0, ldir_p = 0, gx_r = 0, gz_r = 0, cx_f = 0, cz_f = 0;
+    int dpage = s.page;
     float px_f = 0.0f, pz_f = 0.0f, vx_r = 0.0f, vz_r = 0.0f,
           wx_r = 0.0f, wz_r = 0.0f, ix_r = 0.0f, iz_r = 0.0f;
     bool nr = false;
     if (is_portal) {
-        const int pw = __ldg(w.word + flat_index(s.cx, s.cz));
+        const int pw = __ldg(w.word + flat_index(s.cx, s.cz, s.page));
+        // a one-page world's bits 26-29 count spheres, not a page
+        if (w.n_pages > 1) dpage = (pw >> 26) & 0xF;
         pkind = (pw >> 4) & 3;
         const int prot = (pw >> 6) & 3;
         const int pdcx = ((pw >> 12) & 0x7F) - 64;
@@ -572,7 +591,7 @@ __device__ void segment_body(const World& w, Seg& s) {
         cz_f = czp + step_dz;
         px_f = px_r + (float)step_dx;
         pz_f = pz_r + (float)step_dz;
-        if (has_sph) nr = sphere_rel(w, px_f, pz_f, vx_r, vz_r);
+        if (has_sph) nr = sphere_rel(w, px_f, pz_f, vx_r, vz_r, dpage);
     }
     // tilt is exactly 0 on non-ramp lanes (tracer_core.py:922-925)
     float tilt = 0.0f, wy_ramp = 0.0f;
@@ -674,7 +693,8 @@ __device__ void segment_body(const World& w, Seg& s) {
     const bool pgo = a && is_portal && pkind == 1;
     int f_next = s.ent;
     if (stepped || pgo) {
-        f_next = pgo ? fetch(w, cx_f, cz_f) : fetch(w, cx2, cz2);
+        f_next = pgo ? fetch(w, cx_f, cz_f, dpage)
+                     : fetch(w, cx2, cz2, s.page);
     }
 
     // ---- transitions ----
@@ -751,6 +771,7 @@ __device__ void segment_body(const World& w, Seg& s) {
         : m_ryhit ? (ray_y2 < 0.0f ? FYN : FYP)
         : (m_yhit || m_wall2) ? ldir2 : s.ldir;
     if (cont2 || pgo2) s.ent = f_next;
+    if (pgo2) s.page = dpage;
     s.px = npx;
     s.py = npy;
     s.pz = npz;
@@ -930,6 +951,7 @@ struct Params {
     const uint32_t* rsq_tab;  // parity mode only
     const uint32_t* rcp_tab;  // parity mode only
     int n, n_spheres, k_bucket, maxsteps, reflect, skip;
+    int n_pages, sphere_page, page0;
     float sec, slack, inv_mod;
     int32_t* out_fb;
     float* out_dist;
@@ -965,6 +987,8 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
     w.word = a.word;
     w.sph = sph;
     w.n_spheres = a.n_spheres;
+    w.n_pages = a.n_pages;
+    w.sphere_page = a.sphere_page;
     if (P) {
         w.bx = w.bz = w.brq2 = 0.0f;
         w.skip = false;
@@ -990,15 +1014,17 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
     float dist0 = 0.0f;
     const int n_waves = a.reflect + 1;
     int last = 0;
+    int page = a.page0;
     Seg s;
     for (int k = 0; k < n_waves; ++k) {
-        init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true);
+        init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true, page);
         if (!P && a.n_spheres > 0)
             s.sph_dirty = sphere_all(w, s, true, false);
         for (int step = 0; step < a.maxsteps && s.active; ++step)
             segment_body<P>(w, s);
         if (s.active) s.tmeta = T_SKY;
         if (k == 0) dist0 = s.cdist;
+        page = s.page;        // the next wave starts where this one ended
         const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
                                  a.inv_mod, fx, fy, fz, rx, ry, rz);
         base[k][0] = o.b;
@@ -1036,7 +1062,9 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
 template <bool P>
 int launch(const Params& a, void* stream) {
     if (a.n_spheres < 0 || a.n_spheres > NSPH_MAX || a.reflect < 0
-            || a.reflect + 1 > MAX_WAVES
+            || a.reflect + 1 > MAX_WAVES || a.n_pages < 1 || a.n_pages > 16
+            || a.sphere_page < 0 || a.sphere_page >= a.n_pages
+            || a.page0 < 0 || a.page0 >= a.n_pages || (P && a.n_pages != 1)
             || (P && (a.k_bucket < 0 || (a.k_bucket > 0
                                          && a.n_spheres == 0))))
         return (int)cudaErrorInvalidValue;
@@ -1057,8 +1085,9 @@ int launch(const Params& a, void* stream) {
 
 // Trace n rays in fast mode.  Inputs: origins (ox, oy, oz) and directions
 // (dx, dy, dz) f32 [n], seeds i32 [n] (uint32 bits); the world tables of
-// ops/world.py:world_to_torch.  Output: out_fb i32 [n] packed BGRA and
-// out_dist f32 [n] primary-wave distance.  Launches on `stream`; returns
+// ops/world.py:world_to_torch (ent and word [n_pages * 4096]); every ray
+// starts on page page0.  Output: out_fb i32 [n] packed BGRA and out_dist
+// f32 [n] primary-wave distance.  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* dx, const void* dy, const void* dz,
@@ -1066,6 +1095,7 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* word, const void* sph,
                             const void* bound, int n, int n_spheres,
                             int maxsteps, int reflect, int skip,
+                            int n_pages, int sphere_page, int page0,
                             float sec, float slack, float inv_mod,
                             void* out_fb, void* out_dist, void* stream) {
     Params a = {};
@@ -1085,6 +1115,9 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
     a.maxsteps = maxsteps;
     a.reflect = reflect;
     a.skip = skip;
+    a.n_pages = n_pages;
+    a.sphere_page = sphere_page;
+    a.page0 = page0;
     a.sec = sec;
     a.slack = slack;
     a.inv_mod = inv_mod;
@@ -1122,6 +1155,7 @@ extern "C" int pwnfps_trace_parity(
     a.k_bucket = k_bucket;
     a.maxsteps = maxsteps;
     a.reflect = reflect;
+    a.n_pages = 1;
     a.sec = sec;
     a.inv_mod = inv_mod;
     a.out_fb = (int32_t*)out_fb;

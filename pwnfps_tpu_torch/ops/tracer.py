@@ -5,8 +5,10 @@ trace_wave and tracer_pallas.py:trace_wave_pallas).
 any device.  `trace_wave` takes it for CPU tensors and launches the
 CUDA kernel of csrc/tracer.cu for CUDA tensors: entry `pwnfps_trace` in
 fast mode, `pwnfps_trace_parity` when `cfg.parity` is set.  The kernel
-replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (one
-page, both modes).
+replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel: one
+page in both modes, and paged worlds in fast mode, where every ray
+starts on the scalar page `page0` (the TPU kernel's `page0_ref`,
+tracer_pallas.py:648).
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from .tracer_core import check_config, col_ftoint, trace_wave_env
 from .vec import V3
 from .world import SPH_COLS, TorchWorld
 
-# launches of each kernel entry since import (reset by callers that
-# count): LAUNCHES fast mode, LAUNCHES_PARITY parity mode
+# launches of each kernel variant since import (reset by callers that
+# count): LAUNCHES fast mode on a one-page world, LAUNCHES_PAGED fast
+# mode on a paged world (the same entry), LAUNCHES_PARITY parity mode
 LAUNCHES = 0
+LAUNCHES_PAGED = 0
 LAUNCHES_PARITY = 0
 # C entry points of csrc/tracer.cu
-_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
          + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3,
          "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
          + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3}
@@ -36,16 +40,20 @@ _SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
 
 def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                      iray: V3, seed: torch.Tensor, sec, pack: bool = False,
-                     counts: dict | None = None):
-    """Plain torch trace.  seed: int32 [n] (uint32 bits).  Returns
-    (C4, dist), or (fb int32 BGRA bits, dist) with pack=True.  counts:
-    see tracer_core.run_segment."""
+                     counts: dict | None = None, page0: int = 0):
+    """Plain torch trace.  seed: int32 [n] (uint32 bits); page0: the
+    page every ray starts on.  Returns (C4, dist), or (fb int32 BGRA
+    bits, dist) with pack=True.  counts: see tracer_core.run_segment."""
+    page = torch.full_like(seed, page0)
     col, dist = trace_wave_env(wt, cfg, ifrom, iray, lcg.u32(seed), sec,
-                               counts)
+                               page, counts)
     return (col_ftoint(col), dist) if pack else (col, dist)
 
 
-def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed):
+def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
+    if not 0 <= page0 < wt.n_pages:
+        raise ValueError(f"start page {page0} is not a page of a "
+                         f"{wt.n_pages}-page world")
     n = ifrom.x.shape[0]
     for t in (*ifrom, *iray):
         if t.shape != (n,) or t.dtype != torch.float32:
@@ -57,10 +65,12 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed):
     devs = {t.device for t in (*ifrom, *iray, seed, *tables)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
-    if (wt.ent.shape != (4096,) or wt.word.shape != (4096,)
+    cells = wt.n_pages * 4096
+    if (wt.ent.shape != (cells,) or wt.word.shape != (cells,)
+            or not 0 <= wt.sphere_page < wt.n_pages
             or wt.sph.shape != (wt.n_spheres, SPH_COLS)
             or wt.bound.shape != (4,)
-            or wt.buckets.shape != (4096 * wt.k_bucket,)
+            or wt.buckets.shape != (cells * wt.k_bucket,)
             or wt.rsqrt_tab.shape != (8192,) or wt.rcp_tab.shape != (4096,)
             or any(t.dtype != torch.int32
                    for t in (wt.ent, wt.word, wt.buckets, wt.rsqrt_tab,
@@ -71,8 +81,8 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed):
 
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
-            seed: torch.Tensor, sec):
-    global LAUNCHES, LAUNCHES_PARITY
+            seed: torch.Tensor, sec, page0: int):
+    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_PARITY
     n = ifrom.x.shape[0]
     dev = ifrom.x.device
     # the contiguous copies must outlive the launch: keep them here
@@ -96,31 +106,36 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
                 wt.sph.data_ptr(), wt.bound.data_ptr(),
                 n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
-                int(cfg.space_skip and wt.skip_ok),
-                float(np.float32(sec)), float(np.float32(wt.slack)),
-                lcg.INV_MOD_F, fb.data_ptr(), dist.data_ptr(), stream)
+                int(cfg.space_skip and wt.skip_ok), wt.n_pages,
+                wt.sphere_page, page0, float(np.float32(sec)),
+                float(np.float32(wt.slack)), lcg.INV_MOD_F, fb.data_ptr(),
+                dist.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
     if cfg.parity:
         LAUNCHES_PARITY += 1
+    elif wt.n_pages > 1:
+        LAUNCHES_PAGED += 1
     else:
         LAUNCHES += 1
     return fb, dist
 
 
 def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
-               seed: torch.Tensor, sec, pack: bool = False):
-    """Full multi-bounce trace of n rays.  Returns (C4 of [n], dist [n]),
-    or (fb int32 [n] BGRA bits, dist [n]) with pack=True.  The kernel
-    writes packed BGRA only, so CUDA tensors need pack=True."""
-    check_config(cfg)
-    _check_inputs(wt, ifrom, iray, seed)
+               seed: torch.Tensor, sec, pack: bool = False, page0: int = 0):
+    """Full multi-bounce trace of n rays, each starting on page `page0`.
+    Returns (C4 of [n], dist [n]), or (fb int32 [n] BGRA bits, dist [n])
+    with pack=True.  The kernel writes packed BGRA only, so CUDA tensors
+    need pack=True."""
+    check_config(cfg, wt.n_pages)
+    _check_inputs(wt, ifrom, iray, seed, page0)
     dev = ifrom.x.device
     if dev.type == "cpu":
-        return trace_wave_plain(wt, cfg, ifrom, iray, seed, sec, pack)
+        return trace_wave_plain(wt, cfg, ifrom, iray, seed, sec, pack,
+                                page0=page0)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not pack:
         raise NotImplementedError("the trace kernel writes packed BGRA "
                                   "only: pass pack=True")
-    return _launch(wt, cfg, ifrom, iray, seed, sec)
+    return _launch(wt, cfg, ifrom, iray, seed, sec, page0)

@@ -1,4 +1,4 @@
-"""The wavefront tracer's semantics in plain torch (one page).
+"""The wavefront tracer's semantics in plain torch.
 
 A port of pwnfps_tpu/ops/tracer_core.py over [N] tensors: the same DDA
 march, ramps, fog, 2-high walls, quarter-turn portals, shading, the
@@ -6,6 +6,13 @@ reflect jitter and the backward unwind blend, each expression in the JAX
 package's order so that it rounds at the same places.  This is the plain
 version the CPU tests hold against the JAX package and against which the
 CUDA kernel (csrc/tracer.cu) is held on the card.
+
+Paged worlds (worlddev.build_world_paged): every lane carries its page,
+each cell fetch reads page*4096 + its clamped local index, a portal
+moves the lane to the target page its word holds (bits 26-29), spheres
+exist only on `sphere_page`, and each bounce wave starts on the page
+where the wave before it ended.  A one-page world is the degenerate case
+(every page 0).  Paged worlds run in fast mode only.
 
 Two modes, as in the JAX package, selected by `cfg.parity`:
 
@@ -125,6 +132,7 @@ class SegState(NamedTuple):
     gz: torch.Tensor
     cx: torch.Tensor
     cz: torch.Tensor
+    page: torch.Tensor        # i32 page of the lane (0 in a one-page world)
     cdist: torch.Tensor
     fog: torch.Tensor
     ldir: torch.Tensor
@@ -146,6 +154,7 @@ class SegOut(NamedTuple):
     tdist: torch.Tensor
     tpos: V3
     tray: V3
+    tpage: torch.Tensor       # page the segment ended on
     aux_refl: torch.Tensor
     aux_pos: V3
     aux_norm: V3
@@ -167,24 +176,31 @@ def _tmap2(fn, a, b):
 
 # ---- cell fetches ----------------------------------------------------------
 
-def flat_cell_index(cx, cz):
+def flat_cell_index(cx, cz, page):
+    """tracer_core.flat_cell_index: an out-of-bounds cell reads cell 0
+    of the lane's page."""
     inb = (cx >= 0) & (cx < 64) & (cz >= 0) & (cz < 64)
-    return torch.where(inb, cz * 64 + cx, 0)
+    return torch.where(inb, cz * 64 + cx, 0) + page * 4096
 
 
-def fetch(wt: TorchWorld, cx, cz):
-    return wt.ent[flat_cell_index(cx, cz).long()]
+def fetch(wt: TorchWorld, cx, cz, page):
+    return wt.ent[flat_cell_index(cx, cz, page).long()]
 
 
-def fetch_portal(wt: TorchWorld, cx, cz):
-    w = wt.word[flat_cell_index(cx, cz).long()]
-    return (W.w_pkind(w), W.w_prot(w), W.w_pdcx(w), W.w_pdcz(w))
+def fetch_portal(wt: TorchWorld, cx, cz, page):
+    """(pkind, prot, pdcx, pdcz, dpage) of each lane's cell; dpage is
+    the lane's own page in a one-page world, whose bits 26-29 count
+    spheres."""
+    w = wt.word[flat_cell_index(cx, cz, page).long()]
+    dpage = W.w_dpage(w) if wt.n_pages > 1 else page
+    return (W.w_pkind(w), W.w_prot(w), W.w_pdcx(w), W.w_pdcz(w), dpage)
 
 
 # ---- hoisted sphere candidates (tracer_core.make_sphere_all) --------------
 
-def sphere_rel(wt: TorchWorld, px, pz, vx, vz):
-    """XZ line vs the bounding circle (tracer_core.make_sphere_rel)."""
+def sphere_rel(wt: TorchWorld, px, pz, vx, vz, page):
+    """XZ line vs the bounding circle, on the sphere page only
+    (tracer_core.make_sphere_rel)."""
     bx, _, bz, br = wt.bound_host
     brq2 = float(np.float32(np.float32(br) * np.float32(br))
                  + np.float32(wt.slack))
@@ -193,7 +209,7 @@ def sphere_rel(wt: TorchWorld, px, pz, vx, vz):
     d2xz = rx * rx + rz * rz
     dtxz = rx * vx + rz * vz
     l2 = vx * vx + vz * vz
-    return (d2xz - brq2) * l2 < dtxz * dtxz
+    return ((d2xz - brq2) * l2 < dtxz * dtxz) & (page == wt.sphere_page)
 
 
 def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool,
@@ -215,7 +231,7 @@ def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool,
     w_te = zero
     w_sd = zero
     w_idx = torch.zeros_like(s.sph_dirty)
-    base = mask & s.active
+    base = mask & s.active & (s.page == wt.sphere_page)
     sxp = s.ray.x >= 0.0
     szp = s.ray.z >= 0.0
     ivx_s = torch.where(sxp, s.iavel.x, -s.iavel.x)
@@ -252,7 +268,7 @@ def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool,
     diff = _max(-dot_sse(s.ray, anorm), 0.0)
     diff = 0.2 + 0.8 * diff
     rel_bit = torch.where(sphere_rel(wt, s.pos.x, s.pos.z, s.ray.x,
-                                     s.ray.z), 2, 0).to(I32)
+                                     s.ray.z, s.page), 2, 0).to(I32)
     return (aux_dist,
             apos.where(new, s.aux_apos),
             torch.where(new, w_idx, s.aux_idx),
@@ -361,7 +377,7 @@ def sphere_view(wt: TorchWorld, s: SegState, math: Math):
 
 # ---- segment init ----------------------------------------------------------
 
-def _init_march(wt: TorchWorld, ifrom: V3, iray: V3, math: Math):
+def _init_march(wt: TorchWorld, ifrom: V3, iray: V3, math: Math, page):
     """trace_ray's prologue (tracer_core._init_march)."""
     ray = normalise_sse(iray, math.rsq)
 
@@ -385,18 +401,18 @@ def _init_march(wt: TorchWorld, ifrom: V3, iray: V3, math: Math):
 
     wdist = V3(flip(wd.x, ray.x) * iavel.x, flip(wd.y, ray.y) * iavel.y,
                flip(wd.z, ray.z) * iavel.z)
-    return ray, cx, cz, gx, gy, gz, iavel, wdist, fetch(wt, cx, cz)
+    return ray, cx, cz, gx, gy, gz, iavel, wdist, fetch(wt, cx, cz, page)
 
 
 def init_segment(wt: TorchWorld, ifrom: V3, iray: V3, active,
-                 math: Math) -> SegState:
+                 math: Math, page) -> SegState:
     (ray, cx, cz, gx, gy, gz, iavel, wdist, ent) = _init_march(
-        wt, ifrom, iray, math)
+        wt, ifrom, iray, math, page)
     z1 = torch.zeros_like(ifrom.x)
     zi = torch.zeros_like(cx)
     return SegState(
         pos=ifrom, ray=ray, iavel=iavel, wdist=wdist, ent=ent,
-        gx=gx, gy=gy, gz=gz, cx=cx, cz=cz,
+        gx=gx, gy=gy, gz=gz, cx=cx, cz=cz, page=page,
         cdist=z1, fog=z1, ldir=zi + FYN, active=active.clone(),
         aux_dist=z1 - 1.0, aux_t0=z1 - 1.0, sph_dirty=zi,
         aux_apos=V3(z1, z1, z1), aux_idx=zi, aux_diff=z1, tmeta=zi)
@@ -407,7 +423,7 @@ def init_segment(wt: TorchWorld, ifrom: V3, iray: V3, active,
 def _portal_calc(wt: TorchWorld, s: SegState):
     """Portal traversal targets of each lane's current cell
     (tracer_core.portal_calc), unpacked."""
-    pkind, prot, pdcx, pdcz = fetch_portal(wt, s.cx, s.cz)
+    pkind, prot, pdcx, pdcz, dpage = fetch_portal(wt, s.cx, s.cz, s.page)
     cxp = s.cx + pdcx
     czp = s.cz + pdcz
     px_t = s.pos.x + pdcx.to(F32)
@@ -435,7 +451,8 @@ def _portal_calc(wt: TorchWorld, s: SegState):
     step_dx = W_(ldir_p == FZP, 0, W_(ldir_p == FXN, -1,
                                       W_(ldir_p == FZN, 0, 1)))
     step_dz = W_(ldir_p == FZP, 1, W_(ldir_p == FZN, -1, 0))
-    return dict(pkind=pkind, ldir_p=ldir_p, gx_r=gx_r, gz_r=gz_r,
+    return dict(pkind=pkind, dpage=dpage, ldir_p=ldir_p, gx_r=gx_r,
+                gz_r=gz_r,
                 cx_f=cxp + step_dx, cz_f=czp + step_dz,
                 px_f=px_r + step_dx.to(F32), pz_f=pz_r + step_dz.to(F32),
                 vx_r=vx_r, vz_r=vz_r, wx_r=wx_r, wz_r=wz_r,
@@ -581,14 +598,16 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
     # ---- portal traversal (targets from the rare-event branch above;
     # with no active portal lane, pkind == 0 and no lane takes them) ----
     if p is None:
-        p = dict(pkind=torch.zeros_like(s.cx), ldir_p=s.ldir, gx_r=gx,
-                 gz_r=gz, cx_f=s.cx, cz_f=s.cz, px_f=pos.x, pz_f=pos.z,
-                 vx_r=ray.x, vz_r=ray.z, wx_r=wx, wz_r=wz,
+        p = dict(pkind=torch.zeros_like(s.cx), dpage=s.page,
+                 ldir_p=s.ldir, gx_r=gx, gz_r=gz, cx_f=s.cx, cz_f=s.cz,
+                 px_f=pos.x, pz_f=pos.z, vx_r=ray.x, vz_r=ray.z, wx_r=wx,
+                 wz_r=wz,
                  ix_r=iavel.x, iz_r=iavel.z)
         nr = None
     elif hoisted:
         # post-portal line relevance (the event branch's bit 22)
-        nr = sphere_rel(wt, p["px_f"], p["pz_f"], p["vx_r"], p["vz_r"])
+        nr = sphere_rel(wt, p["px_f"], p["pz_f"], p["vx_r"], p["vz_r"],
+                        p["dpage"])
     pkind = p["pkind"]
     pgo = a & is_portal & (pkind == 1)
     cx_f, cz_f = p["cx_f"], p["cz_f"]
@@ -596,7 +615,8 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
     # ---- the one per-step fetch ----
     tgt_cx = W_(pgo, cx_f, cx2)
     tgt_cz = W_(pgo, cz_f, cz2)
-    f_next = fetch(wt, tgt_cx, tgt_cz)
+    tgt_pg = W_(pgo, p["dpage"], s.page)
+    f_next = fetch(wt, tgt_cx, tgt_cz, tgt_pg)
 
     # ---- transitions ----
     ncls = f_next & 0xF
@@ -678,7 +698,8 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
 
     s = s._replace(pos=new_pos, ray=new_ray, wdist=new_wd, iavel=new_ia,
                    ent=new_ent, gx=new_gx.to(I32), gz=new_gz.to(I32),
-                   cx=new_cx.to(I32), cz=new_cz.to(I32), cdist=new_cd,
+                   cx=new_cx.to(I32), cz=new_cz.to(I32),
+                   page=W_(pgo2, p["dpage"], s.page).to(I32), cdist=new_cd,
                    fog=new_fog, ldir=new_ld.to(I32),
                    tmeta=new_tmeta.to(I32), active=s.active & ~term)
 
@@ -703,11 +724,13 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
 
 
 def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
-                iray: V3, active, counts: dict | None = None) -> SegOut:
-    """March every active lane until it terminates or the step budget
-    runs out (tracer_core.run_segment).  The loop steps only the lanes
-    still active, compacting the working set as lanes die; a dead lane's
-    state is final, so this is the same as stepping every lane.
+                iray: V3, active, page, counts: dict | None = None
+                ) -> SegOut:
+    """March every active lane, starting on `page` (i32 [n]), until it
+    terminates or the step budget runs out (tracer_core.run_segment).
+    The loop steps only the lanes still active, compacting the working
+    set as lanes die; a dead lane's state is final, so this is the same
+    as stepping every lane.
 
     counts, when given, accumulates the work these rays needed (what the
     kernel's bound is computed from): `segments` traced, DDA `steps`
@@ -715,7 +738,7 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     the `slot_hits` among them that run the exact div and sqrt."""
     use_skip = cfg.space_skip and not cfg.parity and wt.skip_ok
     hoisted = not cfg.parity and wt.n_spheres > 0
-    s = init_segment(wt, ifrom, iray, active, math)
+    s = init_segment(wt, ifrom, iray, active, math, page)
     if hoisted:
         s = _apply_aux(s, sphere_all(wt, s, s.active, merge=False,
                                      math=math))
@@ -751,8 +774,8 @@ def seg_out_view(wt: TorchWorld, s: SegState, math: Math) -> SegOut:
     refl, apos, anorm, acol = sphere_view(wt, s, math)
     return SegOut(tkind=s.tmeta & 3, tldir=s.ldir,
                   tcolid=(s.tmeta >> 2) & 3, tfog=s.fog, tdist=s.cdist,
-                  tpos=s.pos, tray=s.ray, aux_refl=refl, aux_pos=apos,
-                  aux_norm=anorm, aux_col=acol)
+                  tpos=s.pos, tray=s.ray, tpage=s.page, aux_refl=refl,
+                  aux_pos=apos, aux_norm=anorm, aux_col=acol)
 
 
 # ---- shading, bounce, unwind -----------------------------------------------
@@ -828,8 +851,9 @@ def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
     return base, refl, bounce, mpos, V3(mx, my, mz), seed
 
 
-def check_config(cfg: RenderConfig) -> None:
-    """Raise on every RenderConfig feature this slice does not port.
+def check_config(cfg: RenderConfig, n_pages: int = 1) -> None:
+    """Raise on every RenderConfig feature the port does not run, on a
+    world of n_pages pages.
     The Mosaic layout knobs (step_chunk, pack_carry, trace_2d,
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
     ignored."""
@@ -837,18 +861,20 @@ def check_config(cfg: RenderConfig) -> None:
         ("samples>1", cfg.samples != 1),
         ("fused=True", cfg.fused), ("profile=True", cfg.profile),
         ("probe", bool(cfg.probe)), ("water=False", not cfg.water),
-        ("cam_page!=0", cfg.cam_page != 0)) if bad]
+        ("paged worlds in parity mode", cfg.parity and n_pages > 1))
+        if bad]
     if missing:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(missing))
 
 
 def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
-                   iray: V3, seed, sec, counts: dict | None = None):
+                   iray: V3, seed, sec, page,
+                   counts: dict | None = None):
     """Full multi-bounce trace (tracer_core.trace_wave_env, unfused,
-    samples == 1).  seed: int64 uint32 states.  Returns (col: C4, dist).
-    """
-    check_config(cfg)
+    samples == 1).  seed: int64 uint32 states; page: i32 [n] start page
+    of each ray.  Returns (col: C4, dist)."""
+    check_config(cfg, wt.n_pages)
     math = make_math(wt, cfg.parity)
     sec = float(np.float32(sec))
     one = torch.ones_like(ifrom.x)
@@ -858,8 +884,9 @@ def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     cur_from, cur_ray = ifrom, iray
     dist0 = None
     for k in range(cfg.n_waves):
-        out = run_segment(wt, cfg, math, cur_from, cur_ray, active,
+        out = run_segment(wt, cfg, math, cur_from, cur_ray, active, page,
                           counts)
+        page = out.tpage      # bounce waves continue in the hit's page
         if k == 0:
             dist0 = out.tdist
         base, refl, bounce, mpos, mray, seed = shade_and_bounce(

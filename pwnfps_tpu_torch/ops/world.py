@@ -2,26 +2,33 @@
 
 `world_to_torch` carries the state the JAX package builds inside
 `tracer_jnp.make_env` (pwnfps_tpu/ops/tracer_jnp.py:102-203) across to
-torch tensors on one device:
+torch tensors on one device.  The cell tables hold every page of a
+paged world, flattened as page*4096 + cz*64 + cx:
 
-  * `ent`   [4096] i32: the packed per-cell entry (a numpy copy of
-    `tracer_core.decode_word`, tracer_core.py:157-170) - cls, the
-    2-high wall class, has-sphere, the skip runs and the bucket count;
-  * `word`  [4096] i32: the full channel word; portal fields are read
-    straight from it, bit-equal to the JAX slot-table path
-    (worlddev.portal_slot_tables, worlddev.py:396-400);
+  * `ent`   [n_pages*4096] i32: the packed per-cell entry (a numpy copy
+    of `tracer_core.decode_word`, tracer_core.py:157-170) - cls, the
+    2-high wall class, has-sphere, the skip runs and the bucket count.
+    A portal cell of a paged world keeps its target page in the count
+    bits of its word, so its entry has the has-sphere bit and the count
+    cleared, as the Pallas table builder clears the former
+    (tracer_pallas.py:185-189);
+  * `word`  [n_pages*4096] i32: the full channel word; portal fields
+    (and a paged world's target page) are read straight from it,
+    bit-equal to the JAX slot-table path (worlddev.portal_slot_tables,
+    worlddev.py:396-400);
   * `sph`   [n, 16] f32: the sphere SoA plus the per-sphere scalars the
     hoisted candidate pass derives (bucket AABB, r^2, 1/r^2);
   * `bound` [4] f32: centre and radius of the sphere bounding every
     scene sphere (tracer_jnp.py:176-183);
-  * parity mode's tables: `buckets` [4096 * k_bucket] i32, each cell's
-    sphere indices in insertion order (-1 pad; the JAX package's
-    [4096 * 15] table cut to the k_bucket slots the scan reads), and
-    the SSE `rsqrt_tab` [8192] and `rcp_tab` [4096] (uint32 bits held
+  * parity mode's tables: `buckets` [n_pages*4096*k_bucket] i32, each
+    cell's sphere indices in insertion order (-1 pad; the JAX package's
+    [n_pages*4096 * 15] table cut to the k_bucket slots the scan reads),
+    and the SSE `rsqrt_tab` [8192] and `rcp_tab` [4096] (uint32 bits held
     in i32).  The scan reads each sphere's centre and radius from `sph`.
 
 `world_to_torch` takes a numpy `WorldDev` and `WorldMeta` of either
-package (the same fields).  Only single-page worlds are taken.
+package (the same fields), one page or a paged atlas
+(worlddev.build_world_paged).
 """
 
 from __future__ import annotations
@@ -40,11 +47,15 @@ SPH_COLS = 16
 NSPH_MAX = 16          # sphere capacity of the CUDA kernel (as the TPU's)
 
 
-def decode_word_np(w: np.ndarray) -> np.ndarray:
-    """tracer_core.decode_word on numpy: the compact cell entry."""
+def decode_word_np(w: np.ndarray, paged: bool = False) -> np.ndarray:
+    """tracer_core.decode_word on numpy: the compact cell entry.  paged:
+    portal cells' nsph bits hold their target page, not a count, so the
+    entry takes 0 for it."""
     cls = W.w_cls(w)
     not_p = cls != W.PORTAL
     nsph = W.w_nsph(w)
+    if paged:
+        nsph = np.where(not_p, nsph, 0)
     xcls = W.w_xcls(w)
     xc2 = np.where((xcls == W.TALL) | (xcls == W.TALLFOG), 1,
                    np.where(xcls == W.LOWER, 2, 0))
@@ -93,17 +104,19 @@ def sphere_bound(world: W.WorldDev, n: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class TorchWorld:
-    ent: torch.Tensor       # [4096] i32 compact cell entries
-    word: torch.Tensor      # [4096] i32 full channel words
+    ent: torch.Tensor       # [n_pages*4096] i32 compact cell entries
+    word: torch.Tensor      # [n_pages*4096] i32 full channel words
     sph: torch.Tensor       # [n, 16] f32 sphere records
     bound: torch.Tensor     # [4] f32 bound centre + radius
-    buckets: torch.Tensor   # [4096 * k_bucket] i32 sphere ids, -1 pad
+    buckets: torch.Tensor   # [n_pages*4096*k_bucket] i32 sphere ids
     rsqrt_tab: torch.Tensor  # [8192] i32 (uint32 bits)
     rcp_tab: torch.Tensor   # [4096] i32 (uint32 bits)
     n_spheres: int
     k_bucket: int           # bucket slots the parity scan reads
     skip_ok: bool           # meta.has_clear: may the empty-space skip run
     slack: float            # meta.sph_slack: bound-gate slack
+    n_pages: int            # pages of the atlas (1: one 64x64 grid)
+    sphere_page: int        # the page every sphere lives on
     # host copies of sph/bound as Python floats (f32-exact): the plain
     # tracer's per-sphere scalars
     sph_host: tuple
@@ -121,21 +134,26 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
 
 def world_to_torch(world: W.WorldDev, meta: W.WorldMeta,
                    device) -> TorchWorld:
-    if meta.n_pages != 1:
-        raise NotImplementedError("paged worlds are not ported yet")
+    pages = int(meta.n_pages)
     n = int(meta.n_spheres)
     if n > NSPH_MAX:
         raise ValueError(f"{n} spheres exceed the {NSPH_MAX}-sphere cap")
     word = np.asarray(world.word, np.int32)
+    if not 1 <= pages <= 16 or word.shape != (pages * 4096,) \
+            or not 0 <= meta.sphere_page < pages:
+        raise ValueError(f"word table {word.shape} does not hold "
+                         f"{pages} pages of 4096 cells with spheres on "
+                         f"page {meta.sphere_page}")
     kb = int(meta.k_bucket)
-    buckets = np.asarray(world.buckets, np.int32).reshape(4096, -1)
+    buckets = np.asarray(world.buckets, np.int32).reshape(pages * 4096,
+                                                          -1)
     if kb > buckets.shape[1] or (kb > 0 and buckets[:, :kb].max() >= n):
         raise ValueError(f"bucket table does not fit k_bucket={kb} and "
                          f"{n} spheres")
     sph = sphere_table(world, n)
     bound = sphere_bound(world, n)
     return TorchWorld(
-        ent=_i32(decode_word_np(word), device),
+        ent=_i32(decode_word_np(word, pages > 1), device),
         word=_i32(word, device),
         sph=torch.from_numpy(sph).to(device),
         bound=torch.from_numpy(bound).to(device),
@@ -143,6 +161,7 @@ def world_to_torch(world: W.WorldDev, meta: W.WorldMeta,
         rsqrt_tab=_i32(np.asarray(world.rsqrt_tab, np.uint32), device),
         rcp_tab=_i32(np.asarray(world.rcp_tab, np.uint32), device),
         n_spheres=n, k_bucket=kb, skip_ok=bool(meta.has_clear),
-        slack=float(meta.sph_slack),
+        slack=float(meta.sph_slack), n_pages=pages,
+        sphere_page=int(meta.sphere_page),
         sph_host=tuple(tuple(float(v) for v in row) for row in sph),
         bound_host=tuple(float(v) for v in bound))

@@ -1,6 +1,6 @@
 """Device-resident world representation.
-Copied from pwnfps_tpu/ops/worlddev.py (single-page worlds; the paged
-atlas builder and the portal slot tables are not copied).
+Copied from pwnfps_tpu/ops/worlddev.py (the portal slot tables are not
+copied: the port reads portal fields straight from the word table).
 
 The tracer's inner loop needs, per DDA step and per ray, everything about
 the current cell.  Instead of the reference's char switch
@@ -349,6 +349,13 @@ def w_runz(w):
     return (w >> 16) & 0xF
 
 
+def w_dpage(w):
+    """Portal target page (paged worlds): rides the nsph bits, valid
+    only on portal cells of a multi-page world (which may not hold
+    sphere buckets - enforced by build_world_paged)."""
+    return (w >> 26) & 0xF
+
+
 def _pslot_capacity(words: np.ndarray, n_pages: int) -> int:
     """Padded per-page slot capacity for WorldMeta.pslots: the max
     portal count over pages rounded up to a 128-lane multiple (>= 128,
@@ -360,3 +367,52 @@ def _pslot_capacity(words: np.ndarray, n_pages: int) -> int:
     if npmax > 256:
         return 0
     return max(128, -(-npmax // 128) * 128)
+
+
+def build_world_paged(static_words: np.ndarray, spheres: SphereSet,
+                      sphere_page: int, tables: SseTables
+                      ) -> tuple[WorldDev, WorldMeta]:
+    """Assemble a multi-page world atlas.
+
+    static_words: [P, 4096] int32 packed channel words per page; portal
+    cells carry their target page in bits 26..29 (w_dpage).  spheres:
+    page-local SphereSet whose buckets live on `sphere_page`."""
+    P = static_words.shape[0]
+    assert 1 <= P <= 16, P
+    sph_slack = _sphere_slack(spheres)
+    words = static_words.astype(np.int32).reshape(P, 4096).copy()
+    counts = spheres.counts.reshape(-1).astype(np.int32)
+    k_needed = int(counts.max()) if counts.size else 0
+    if P > 1:
+        is_portal = (words & 0xF) == PORTAL
+        if (counts[is_portal[sphere_page]] > 0).any():
+            raise ValueError(
+                "paged worlds cannot hold sphere buckets on portal "
+                "cells (their nsph bits carry the target page)")
+    for p in range(P):
+        words[p] |= clearance_static(words[p]).reshape(-1) << 12
+    words[sphere_page] |= counts << 26
+    buckets = np.full((P * 4096, spheres.buckets.shape[-1]), -1,
+                      np.int32)
+    buckets[sphere_page * 4096:(sphere_page + 1) * 4096] = \
+        spheres.buckets.reshape(4096, -1)
+    n = int(np.count_nonzero(spheres.r))
+    if spheres.buckets.size:
+        n = max(n, int(spheres.buckets.max()) + 1)
+    dev = WorldDev(
+        word=words.reshape(-1),
+        buckets=buckets.reshape(-1),
+        sph_pos=spheres.pos.astype(np.float32),
+        sph_r=spheres.r.astype(np.float32),
+        sph_refl=spheres.refl.astype(np.float32),
+        sph_col=spheres.col.astype(np.float32),
+        rsqrt_tab=tables.rsqrt,
+        rcp_tab=tables.rcp,
+    )
+    has_clear = bool(((words >> 12) & 0xFF)[(words & 0xF) != PORTAL]
+                     .any())
+    return dev, WorldMeta(k_bucket=k_needed, n_spheres=max(n, 0),
+                          lh=64, n_pages=P, sphere_page=sphere_page,
+                          has_clear=has_clear,
+                          pslots=_pslot_capacity(words, P),
+                          sph_slack=sph_slack)

@@ -1,9 +1,11 @@
-"""Frame renderer (pwnfps_tpu/render/frame.py, one page).
+"""Frame renderer (pwnfps_tpu/render/frame.py).
 
 ray gen -> multi-bounce trace with in-kernel BGRA8 pack -> DoF blur.
 On CUDA tensors the trace and the blur are one kernel launch each
 (ops/tracer.py, ops/blur.py); on CPU tensors both take their plain
-torch versions.  Fast mode and parity mode (`cfg.parity`).
+torch versions.  Fast mode and parity mode (`cfg.parity`) on one page;
+fast mode on a paged world, every primary ray starting on
+`cfg.cam_page`.
 """
 
 from __future__ import annotations
@@ -74,8 +76,9 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     on the world's device.  origin/rayb/rdx/rdy: float32 [3] (numpy or
     tensors, as render/camera.camera_vectors gives them); sec: the clock.
     """
-    if meta.n_pages != 1:
-        raise NotImplementedError("paged worlds are not ported yet")
+    if not 0 <= cfg.cam_page < meta.n_pages:
+        raise ValueError(f"cam_page {cfg.cam_page} is not a page of a "
+                         f"{meta.n_pages}-page world")
     dev = world.device
     h, w = cfg.height, cfg.width
     rays = gen_rays(_vec3(rayb, dev), _vec3(rdx, dev), _vec3(rdy, dev),
@@ -84,7 +87,8 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     o = _vec3(origin, dev)
     ifrom = V3(*(o[i].expand(n) for i in range(3)))
     seeds = pixel_seeds(w, h, dev)
-    fb, zbuf = trace_wave(world, cfg, ifrom, rays, seeds, sec, pack=True)
+    fb, zbuf = trace_wave(world, cfg, ifrom, rays, seeds, sec, pack=True,
+                          page0=cfg.cam_page)
     fb, zbuf = fb.reshape(h, w), zbuf.reshape(h, w)
     if cfg.postproc_blur:
         fb = dof_blur(fb, zbuf, cfg.postproc_blur)

@@ -1,7 +1,8 @@
-"""The scenes the port drives, on the demo level.
+"""The scenes the port drives.
 
-Both use `assets/levels/demo.txt` with the game's 14-sphere creature
-centred at (3.5, 0.3, 5.5) and the camera at the level's spawn point:
+The first two use `assets/levels/demo.txt` with the game's 14-sphere
+creature centred at (3.5, 0.3, 5.5) and the camera at the level's spawn
+point:
 
   * `flagship_scene`: bench.py's frame (bench.py:55-103), fast mode,
     the camera yawing 0.07 rad and the clock advancing 0.016 s per
@@ -11,6 +12,15 @@ centred at (3.5, 0.3, 5.5) and the camera at the level's spawn point:
     clock advancing 0.4 s per frame.  configs.py renders it on the
     reference checkout's level.txt, which this repository does not
     hold; the demo level stands in.
+
+The third is BASELINE config #3 (benchmarks/configs.py:175-222):
+
+  * `maze_scene`: the 4-page, 1024-sector maze of
+    `generate_sector_maze(seed=7)`, one sphere in front of the spawn
+    cell, fast mode at 1280x720 with the camera starting on the spawn
+    page, yawing 0.05 rad and the clock advancing 0.016 s per frame.
+    `portal_camera` gives a camera that faces a cross-page portal
+    instead: from the spawn cell, few primary rays leave the spawn page.
 
 Shared by chip_smoke.py and the tests, so both drive the same scenes.
 Each runs on the card unless the caller asks for another device.
@@ -30,6 +40,7 @@ from .ops.world import TorchWorld, world_to_torch
 from .render.camera import camera_vectors, mat4_identity, mat4_roty
 from .world.levelc import load_level
 from .world.objects import ObjectPool
+from .world.procgen import generate_sector_maze
 
 LEVEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "levels", "demo.txt")
@@ -109,3 +120,54 @@ def parity_scene(width: int = 320, height: int = 240, device="cuda",
     one DoF pass) on the demo level, at width x height on `device`."""
     cfg = RenderConfig(width=width, height=height, parity=True, **cfg_kw)
     return _demo_scene(device, n_spheres, cfg, 0.8, 0.4)
+
+
+def maze_scene(width: int = 1280, height: int = 720, device="cuda",
+               seed: int = 7, **cfg_kw) -> Scene:
+    """BASELINE config #3's frame (configs.py:175-222: the paged sector
+    maze, one sphere of radius 0.25 and reflectance 0.5 on the spawn
+    page, fast mode with the empty-space skip) at width x height on
+    `device`; cfg_kw override RenderConfig fields."""
+    words, info = generate_sector_maze(seed=seed)
+    sp, sx, sz = info["spawn"]
+    pool = ObjectPool()
+    i = pool.obj_new()
+    pool.obj_set_sphere(i, 0.25, 0.5, sx + 0.5, 0.35, sz + 1.2,
+                        0.9, 0.6, 0.6)
+    world, meta = W.build_world_paged(words, pool.prepare_render(), sp,
+                                      SseTables.load())
+    cfg = RenderConfig(width=width, height=height, parity=False,
+                       cam_page=sp, **cfg_kw)
+    cam = mat4_identity()
+    cam[3, :3] = (sx + 0.5, 0.5, sz + 0.5)
+    return Scene(world=world, meta=meta,
+                 tworld=world_to_torch(world, meta, device), cfg=cfg,
+                 cam=cam, yaw_step=0.05, sec_step=0.016)
+
+
+def cross_page_portals(world: W.WorldDev, page: int):
+    """(x, z, dpage, dx, dz) of each portal cell on `page` of a paged
+    world whose target page differs, with (dx, dz) the step to its one
+    open neighbour."""
+    g = np.asarray(world.word).reshape(-1, 64, 64)[page]
+    out = []
+    for z, x in np.argwhere((g & 0xF) == W.PORTAL):
+        dp = int(W.w_dpage(int(g[z, x])))
+        nb = [(dx, dz) for dx, dz in ((1, 0), (-1, 0), (0, 1), (0, -1))
+              if 0 <= x + dx < 64 and 0 <= z + dz < 64
+              and (g[z + dz, x + dx] & 0xF) == W.FLOOR]
+        if dp != page and len(nb) == 1:
+            out.append((int(x), int(z), dp) + nb[0])
+    return out
+
+
+def portal_camera(sc: Scene) -> np.ndarray:
+    """A 4x4 camera in the open cell beside the first cross-page portal
+    on the scene's camera page, facing the portal: 0.13 off the cell
+    centre across the portal's axis and turned 0.1 rad off it, so that
+    the symmetric pixel grid does not aim rays exactly at cell edges."""
+    x, z, _, dx, dz = cross_page_portals(sc.world, sc.cfg.cam_page)[0]
+    cam = mat4_identity()
+    cam[3, :3] = (x + dx + 0.5 + 0.13 * dz, 0.5, z + dz + 0.5 + 0.13 * dx)
+    mat4_roty(cam, float(np.arctan2(-dx, -dz)) + 0.1)
+    return cam

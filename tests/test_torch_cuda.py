@@ -6,12 +6,13 @@ need not have, so run these there with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Small versions of chip_smoke.py's phases 3-7: the blur kernel equals the
+Small versions of chip_smoke.py's phases 3-8: the blur kernel equals the
 plain pass bit for bit; the tracer kernel equals the plain tracer bit
 for bit in fb and zbuf (the same device math functions, no FMA
-contraction on either side), in fast mode and in parity mode, where it
-also equals the plain parity tracer run on the host's CPU; render_frame
-launches each kernel once per frame."""
+contraction on either side), in fast mode on one page and on the paged
+maze, and in parity mode, where it also equals the plain parity tracer
+run on the host's CPU; render_frame launches each kernel once per
+frame."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ import torch
 from pwnfps_tpu_torch.ops import blur, tracer
 from pwnfps_tpu_torch.ops.vec import V3
 from pwnfps_tpu_torch.render.frame import gen_rays, pixel_seeds, render_frame
-from pwnfps_tpu_torch.scene import flagship_scene, parity_scene
+from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,
+                                    parity_scene, portal_camera)
 
 pytestmark = pytest.mark.cuda
 
@@ -125,6 +127,38 @@ def test_render_frame_launches_each_kernel_once(dev):
     assert (tracer.LAUNCHES - before[0], blur.LAUNCHES - before[1]) == (1, 1)
     assert fb.shape == (72, 128) and fb.dtype == torch.int32
     assert fb.device.type == "cuda" and torch.isfinite(zb).all()
+    assert torch.unique(fb).numel() > 100
+
+
+@pytest.mark.parametrize("view", ["portal", "path"])
+def test_paged_kernel_matches_plain(dev, view):
+    """160x90 maze frames: from a camera facing a cross-page portal (most
+    primary rays change page) and from the camera path's frame 3."""
+    sc = maze_scene(160, 90, dev)
+    if view == "portal":
+        sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0 if view == "portal" else 3,
+                                            dev)
+    page0 = sc.cfg.cam_page
+    before = (tracer.LAUNCHES, tracer.LAUNCHES_PAGED)
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0)
+    assert (tracer.LAUNCHES, tracer.LAUNCHES_PAGED) == \
+        (before[0], before[1] + 1)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+def test_maze_render_frame_launches_paged_kernel_once(dev):
+    sc = maze_scene(128, 72, dev)
+    before = (tracer.LAUNCHES, tracer.LAUNCHES_PAGED, blur.LAUNCHES)
+    fb, zb = render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(2))
+    torch.cuda.synchronize()
+    assert (tracer.LAUNCHES - before[0], tracer.LAUNCHES_PAGED - before[1],
+            blur.LAUNCHES - before[2]) == (0, 1, 1)
+    assert fb.shape == (72, 128) and torch.isfinite(zb).all()
     assert torch.unique(fb).numel() > 100
 
 

@@ -91,7 +91,8 @@ def test_pixel_seeds_match_jax():
 
 def test_unported_world_and_config_raise(frames):
     sc = frames["scene"]
-    with pytest.raises(NotImplementedError):
+    # a meta that claims two pages for a one-page word table
+    with pytest.raises(ValueError):
         world_to_torch(sc.world, dataclasses.replace(sc.meta, n_pages=2),
                        "cpu")
     with pytest.raises(NotImplementedError):
@@ -105,9 +106,10 @@ def test_unported_world_and_config_raise(frames):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and chip_smoke.py, building both
-    scenes and rendering a tiny frame of each mode imports neither jax
-    nor any module of the JAX package pwnfps_tpu."""
+    """Importing every module of the port and chip_smoke.py, building the
+    three scenes and rendering a tiny frame of each (fast, parity, the
+    paged maze) imports neither jax nor any module of the JAX package
+    pwnfps_tpu."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import pwnfps_tpu_torch as p\n"
@@ -115,8 +117,9 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "from pwnfps_tpu_torch.render.frame import render_frame\n"
-        "from pwnfps_tpu_torch.scene import flagship_scene, parity_scene\n"
-        "for make in (flagship_scene, parity_scene):\n"
+        "from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,\n"
+        "                                    parity_scene)\n"
+        "for make in (flagship_scene, parity_scene, maze_scene):\n"
         "    sc = make(8, 4, 'cpu', maxsteps=64)\n"
         "    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))\n"
         "bad = sorted(k for k in sys.modules\n"

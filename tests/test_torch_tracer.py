@@ -24,7 +24,8 @@ from pwnfps_tpu.ops.vec import V3 as JV3
 from pwnfps_tpu_torch.ops import tracer
 from pwnfps_tpu_torch.ops.tracer_core import col_ftoint, to_i32
 from pwnfps_tpu_torch.ops.vec import V3
-from pwnfps_tpu_torch.scene import flagship_scene
+from pwnfps_tpu_torch.render.frame import render_frame
+from pwnfps_tpu_torch.scene import flagship_scene, maze_scene
 
 N = 64
 SEC = np.float32(2.5)
@@ -130,8 +131,19 @@ def test_unported_config_raises():
     seeds = torch.zeros(4, dtype=torch.int32)
     for kw in (dict(parity=True, samples=2), dict(samples=2),
                dict(fused=True), dict(parity=True, fused=True),
-               dict(profile=True), dict(probe="fire1"), dict(water=False),
-               dict(cam_page=1)):
+               dict(profile=True), dict(probe="fire1"), dict(water=False)):
         cfg = dataclasses.replace(sc.cfg, **kw)
         with pytest.raises(NotImplementedError):
             tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
+    # a one-page world has no page 1 to start on
+    with pytest.raises(ValueError):
+        tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds, SEC, page0=1)
+    with pytest.raises(ValueError):
+        render_frame(sc.tworld, sc.meta,
+                     dataclasses.replace(sc.cfg, cam_page=1),
+                     *sc.frame_args(0))
+    maze = maze_scene(8, 4, "cpu")
+    with pytest.raises(NotImplementedError):
+        tracer.trace_wave(maze.tworld,
+                          dataclasses.replace(maze.cfg, parity=True), rays,
+                          rays, seeds, SEC)
