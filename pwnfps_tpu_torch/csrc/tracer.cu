@@ -7,7 +7,7 @@
 // quarter-turn portals, spheres, water-normal shading, the 5-draw reflect
 // jitter, the exp-fog unwind blend and the BGRA8 pack.  It follows the
 // plain torch tracer pwnfps_tpu_torch/ops/tracer_core.py expression for
-// expression, in two instances of one template:
+// expression, in instances of one template:
 //
 //   * fast (entry pwnfps_trace): the empty-space skip, hoisted sphere
 //     candidates, and the device functions torch's CUDA ops call (rsqrtf,
@@ -19,7 +19,13 @@
 //     page*4096 + the clamped local index, a portal moves the ray to the
 //     target page in bits 26-29 of its word, spheres exist only on
 //     sphere_page, and each bounce wave starts on the page where the wave
-//     before it ended.  A one-page world is page 0 throughout;
+//     before it ended.  A one-page world is page 0 throughout.  With
+//     samples > 1 (distribution path tracing, trace_wave_env's samples
+//     branch, tracer_core.py:1804-1817; the TPU kernel writes the mean
+//     unpacked, tracer_pallas.py:657-662) a thread marches its primary
+//     segment once, runs one bounce chain from it per sample with seed
+//     + k*0x9E3779B9, and packs the chains' mean: a second instance of
+//     the same template (S = true), so samples = 1 keeps its code;
 //   * parity (entry pwnfps_trace_parity; the TPU kernel's _parity_math,
 //     tracer_pallas.py:446, and _sphere_pass_pallas, :491): unit steps,
 //     the reference's per-cell sphere-bucket scan, and bit-exact math -
@@ -36,7 +42,11 @@
 // gather from the cell table (16 KB a page; the 4-page maze's two tables
 // are 128 KB, which L1 and L2 hold), and ~40 scalars of march state plus
 // the unwind records live in registers.  So a warp runs as long as its
-// longest ray, and occupancy is set by the register count.
+// longest ray, and occupancy is set by the register count.  With samples
+// it lasts as long as its longest ray's S chains of up to reflect waves
+// each; the kept primary segment (the ~17 fields shade reads) adds
+// registers, where re-marching it per sample would add a primary march
+// per sample instead.
 //
 // Parity mode adds integer work: a 27-step restoring division and two
 // 25-step square roots per bucket slot a lane's ray hits, and table
@@ -952,10 +962,16 @@ struct Params {
     const uint32_t* rcp_tab;  // parity mode only
     int n, n_spheres, k_bucket, maxsteps, reflect, skip;
     int n_pages, sphere_page, page0;
+    int samples;              // bounce chains a ray (fast mode)
     float sec, slack, inv_mod;
+    float inv;                // f32(1 / samples), rounded on the host
     int32_t* out_fb;
     float* out_dist;
 };
+
+// Weyl increment between the seed streams of two samples
+// (tracer_core.py:1810)
+constexpr uint32_t WEYL = 0x9E3779B9u;
 
 template <bool P>
 constexpr size_t smem_bytes() {
@@ -963,7 +979,73 @@ constexpr size_t smem_bytes() {
         + (P ? sizeof(uint32_t) * (RSQ_N + RCP_N) : 0);
 }
 
+// March one segment from origin (fx, fy, fz) along (rx, ry, rz), starting
+// on `page`, until it terminates or the step budget runs out
+// (tracer_core.run_segment)
 template <bool P>
+__device__ __forceinline__ void march(const World& w, const Params& a,
+                                      Seg& s, float fx, float fy, float fz,
+                                      float rx, float ry, float rz,
+                                      int page) {
+    init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true, page);
+    if (!P && a.n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
+    for (int step = 0; step < a.maxsteps && s.active; ++step)
+        segment_body<P>(w, s);
+    if (s.active) s.tmeta = T_SKY;
+}
+
+// One bounce chain (trace_wave_env's chain, tracer_core.py:1774-1802):
+// shade the finished primary segment s0 with this chain's seed, march
+// waves 1..reflect (each on the page where the wave before it ended)
+// until a wave does not bounce, then unwind the blend backward into col.
+template <bool P>
+__device__ __forceinline__ void chain(const World& w, const Params& a,
+                                      const Seg& s0, uint32_t seed,
+                                      float col[4]) {
+    float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    float base[MAX_WAVES][4], refl[MAX_WAVES], fog[MAX_WAVES];
+    float fx, fy, fz, rx, ry, rz;
+    const int n_waves = a.reflect + 1;
+    int last = 0;
+    Seg s = s0;
+    for (int k = 0; k < n_waves; ++k) {
+        if (k > 0) march<P>(w, a, s, fx, fy, fz, rx, ry, rz, s.page);
+        const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
+                                 a.inv_mod, fx, fy, fz, rx, ry, rz);
+        base[k][0] = o.b;
+        base[k][1] = o.g;
+        base[k][2] = o.r;
+        base[k][3] = o.a;
+        refl[k] = o.refl;
+        fog[k] = o.fog;
+        icol[0] = o.b;
+        icol[1] = o.g;
+        icol[2] = o.r;
+        icol[3] = o.a;
+        last = k;
+        if (!o.bounce) break;
+    }
+    // backward unwind blend (tracer_core.py:1795-1801): every wave below
+    // `last` bounced
+    for (int c = 0; c < 4; ++c) col[c] = base[last][c];
+    for (int k = last - 1; k >= 0; --k) {
+        const float fogf = m_exp<P>(-0.6f * fog[k]);
+        for (int c = 0; c < 4; ++c) {
+            const float blended = col[c] * refl[k]
+                + base[k][c] * (1.0f - refl[k]);
+            col[c] = fog[k] != 0.0f ? blended * fogf + (1.0f - fogf)
+                                    : blended;
+        }
+    }
+}
+
+// S: a.samples > 1.  The primary wave consumes no RNG, so it is marched
+// once and kept (the fields shade reads stay in registers); each sample k
+// runs its chain from it with seed + k*WEYL, the chains' colours are
+// summed in sample order ((c0 + c1) + c2) + ..., and the sum is scaled by
+// the host's f32(1 / samples) before the pack (tracer_core.py:1804-1817).
+// S = false is the one-chain trace.
+template <bool P, bool S>
 __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
     // shared memory: the sphere records, then (parity) the SSE tables
     extern __shared__ uint32_t smem[];
@@ -1006,57 +1088,38 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
         w.rsq_tab = w.rcp_tab = nullptr;
     }
 
-    uint32_t seed = (uint32_t)a.seeds[i];
-    float fx = a.ox[i], fy = a.oy[i], fz = a.oz[i];
-    float rx = a.dx[i], ry = a.dy[i], rz = a.dz[i];
-    float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-    float base[MAX_WAVES][4], refl[MAX_WAVES], fog[MAX_WAVES];
-    float dist0 = 0.0f;
-    const int n_waves = a.reflect + 1;
-    int last = 0;
-    int page = a.page0;
+    const uint32_t seed = (uint32_t)a.seeds[i];
     Seg s;
-    for (int k = 0; k < n_waves; ++k) {
-        init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true, page);
-        if (!P && a.n_spheres > 0)
-            s.sph_dirty = sphere_all(w, s, true, false);
-        for (int step = 0; step < a.maxsteps && s.active; ++step)
-            segment_body<P>(w, s);
-        if (s.active) s.tmeta = T_SKY;
-        if (k == 0) dist0 = s.cdist;
-        page = s.page;        // the next wave starts where this one ended
-        const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
-                                 a.inv_mod, fx, fy, fz, rx, ry, rz);
-        base[k][0] = o.b;
-        base[k][1] = o.g;
-        base[k][2] = o.r;
-        base[k][3] = o.a;
-        refl[k] = o.refl;
-        fog[k] = o.fog;
-        icol[0] = o.b;
-        icol[1] = o.g;
-        icol[2] = o.r;
-        icol[3] = o.a;
-        last = k;
-        if (!o.bounce) break;
+    march<P>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i],
+             a.page0);
+    const float dist0 = s.cdist;
+    float col[4];
+    for (int k = 0; k < (S ? a.samples : 1); ++k) {
+        float c[4];
+        chain<P>(w, a, s, seed + (uint32_t)k * WEYL, c);
+        for (int j = 0; j < 4; ++j) col[j] = k == 0 ? c[j] : col[j] + c[j];
     }
-    // backward unwind blend (tracer_core.py:1795-1801): every wave below
-    // `last` bounced
-    float col[4] = {base[last][0], base[last][1], base[last][2],
-                    base[last][3]};
-    for (int k = last - 1; k >= 0; --k) {
-        const float fogf = m_exp<P>(-0.6f * fog[k]);
-        for (int c = 0; c < 4; ++c) {
-            const float blended = col[c] * refl[k]
-                + base[k][c] * (1.0f - refl[k]);
-            col[c] = fog[k] != 0.0f ? blended * fogf + (1.0f - fogf)
-                                    : blended;
-        }
+    if (S) {
+        for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
     }
     a.out_dist[i] = dist0;
     a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
                             | pack_chan(col[2], 16)
                             | pack_chan(col[3], 24));
+}
+
+template <bool P, bool S>
+int launch_instance(const Params& a, void* stream) {
+    constexpr size_t smem = smem_bytes<P>();
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            trace_kernel<P, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int grid = (a.n + BLOCK - 1) / BLOCK;
+    trace_kernel<P, S><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 template <bool P>
@@ -1065,20 +1128,14 @@ int launch(const Params& a, void* stream) {
             || a.reflect + 1 > MAX_WAVES || a.n_pages < 1 || a.n_pages > 16
             || a.sphere_page < 0 || a.sphere_page >= a.n_pages
             || a.page0 < 0 || a.page0 >= a.n_pages || (P && a.n_pages != 1)
+            || a.samples < 1 || (P && a.samples != 1)
             || (P && (a.k_bucket < 0 || (a.k_bucket > 0
                                          && a.n_spheres == 0))))
         return (int)cudaErrorInvalidValue;
     if (a.n <= 0) return (int)cudaGetLastError();
-    constexpr size_t smem = smem_bytes<P>();
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            trace_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const int grid = (a.n + BLOCK - 1) / BLOCK;
-    trace_kernel<P><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    if (P) return launch_instance<true, false>(a, stream);
+    return a.samples > 1 ? launch_instance<false, true>(a, stream)
+                         : launch_instance<false, false>(a, stream);
 }
 
 }  // namespace
@@ -1086,8 +1143,9 @@ int launch(const Params& a, void* stream) {
 // Trace n rays in fast mode.  Inputs: origins (ox, oy, oz) and directions
 // (dx, dy, dz) f32 [n], seeds i32 [n] (uint32 bits); the world tables of
 // ops/world.py:world_to_torch (ent and word [n_pages * 4096]); every ray
-// starts on page page0.  Output: out_fb i32 [n] packed BGRA and out_dist
-// f32 [n] primary-wave distance.  Launches on `stream`; returns
+// starts on page page0; samples bounce chains a ray, inv = f32(1 /
+// samples).  Output: out_fb i32 [n] packed BGRA of the chains' mean and
+// out_dist f32 [n] primary-wave distance.  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* dx, const void* dy, const void* dz,
@@ -1096,8 +1154,9 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* bound, int n, int n_spheres,
                             int maxsteps, int reflect, int skip,
                             int n_pages, int sphere_page, int page0,
-                            float sec, float slack, float inv_mod,
-                            void* out_fb, void* out_dist, void* stream) {
+                            int samples, float sec, float slack,
+                            float inv_mod, float inv, void* out_fb,
+                            void* out_dist, void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -1118,9 +1177,11 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
     a.n_pages = n_pages;
     a.sphere_page = sphere_page;
     a.page0 = page0;
+    a.samples = samples;
     a.sec = sec;
     a.slack = slack;
     a.inv_mod = inv_mod;
+    a.inv = inv;
     a.out_fb = (int32_t*)out_fb;
     a.out_dist = (float*)out_dist;
     return launch<false>(a, stream);
@@ -1156,6 +1217,8 @@ extern "C" int pwnfps_trace_parity(
     a.maxsteps = maxsteps;
     a.reflect = reflect;
     a.n_pages = 1;
+    a.samples = 1;
+    a.inv = 1.0f;
     a.sec = sec;
     a.inv_mod = inv_mod;
     a.out_fb = (int32_t*)out_fb;

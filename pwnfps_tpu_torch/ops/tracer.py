@@ -8,7 +8,9 @@ fast mode, `pwnfps_trace_parity` when `cfg.parity` is set.  The kernel
 replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel: one
 page in both modes, and paged worlds in fast mode, where every ray
 starts on the scalar page `page0` (the TPU kernel's `page0_ref`,
-tracer_pallas.py:648).
+tracer_pallas.py:648).  In fast mode `cfg.samples > 1` traces the
+primary wave once and `samples` bounce chains from it, and writes their
+mean (tracer_core.trace_wave_env).
 """
 
 from __future__ import annotations
@@ -26,14 +28,17 @@ from .vec import V3
 from .world import SPH_COLS, TorchWorld
 
 # launches of each kernel variant since import (reset by callers that
-# count): LAUNCHES fast mode on a one-page world, LAUNCHES_PAGED fast
-# mode on a paged world (the same entry), LAUNCHES_PARITY parity mode
+# count), each launch in one counter: LAUNCHES fast mode on a one-page
+# world, LAUNCHES_PAGED fast mode on a paged world (the same entry),
+# LAUNCHES_SAMPLES fast mode with cfg.samples > 1 (the same entry, on
+# either kind of world), LAUNCHES_PARITY parity mode
 LAUNCHES = 0
 LAUNCHES_PAGED = 0
+LAUNCHES_SAMPLES = 0
 LAUNCHES_PARITY = 0
 # C entry points of csrc/tracer.cu
-_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3,
+_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3,
          "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
          + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3}
 
@@ -82,7 +87,7 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
             seed: torch.Tensor, sec, page0: int):
-    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_PARITY
+    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_PARITY
     n = ifrom.x.shape[0]
     dev = ifrom.x.device
     # the contiguous copies must outlive the launch: keep them here
@@ -107,13 +112,16 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 wt.sph.data_ptr(), wt.bound.data_ptr(),
                 n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
                 int(cfg.space_skip and wt.skip_ok), wt.n_pages,
-                wt.sphere_page, page0, float(np.float32(sec)),
-                float(np.float32(wt.slack)), lcg.INV_MOD_F, fb.data_ptr(),
+                wt.sphere_page, page0, cfg.samples, float(np.float32(sec)),
+                float(np.float32(wt.slack)), lcg.INV_MOD_F,
+                float(np.float32(1.0 / cfg.samples)), fb.data_ptr(),
                 dist.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
     if cfg.parity:
         LAUNCHES_PARITY += 1
+    elif cfg.samples > 1:
+        LAUNCHES_SAMPLES += 1
     elif wt.n_pages > 1:
         LAUNCHES_PAGED += 1
     else:
@@ -123,11 +131,13 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
 
 def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                seed: torch.Tensor, sec, pack: bool = False, page0: int = 0):
-    """Full multi-bounce trace of n rays, each starting on page `page0`.
-    Returns (C4 of [n], dist [n]), or (fb int32 [n] BGRA bits, dist [n])
-    with pack=True.  The kernel writes packed BGRA only, so CUDA tensors
-    need pack=True."""
+    """Full multi-bounce trace of n rays, each starting on page `page0`,
+    averaged over cfg.samples bounce chains.  Returns (C4 of [n], dist
+    [n]), or (fb int32 [n] BGRA bits, dist [n]) with pack=True.  The
+    kernel writes packed BGRA only, so CUDA tensors need pack=True."""
     check_config(cfg, wt.n_pages)
+    if cfg.samples < 1:
+        raise ValueError(f"samples={cfg.samples}: need at least one")
     _check_inputs(wt, ifrom, iray, seed, page0)
     dev = ifrom.x.device
     if dev.type == "cpu":

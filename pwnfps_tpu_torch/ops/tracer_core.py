@@ -858,7 +858,7 @@ def check_config(cfg: RenderConfig, n_pages: int = 1) -> None:
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
     ignored."""
     missing = [name for name, bad in (
-        ("samples>1", cfg.samples != 1),
+        ("samples>1 in parity mode", cfg.parity and cfg.samples != 1),
         ("fused=True", cfg.fused), ("profile=True", cfg.profile),
         ("probe", bool(cfg.probe)), ("water=False", not cfg.water),
         ("paged worlds in parity mode", cfg.parity and n_pages > 1))
@@ -868,44 +868,66 @@ def check_config(cfg: RenderConfig, n_pages: int = 1) -> None:
             "not ported yet: " + ", ".join(missing))
 
 
+# Weyl increment between the seed streams of two samples
+# (tracer_core.py:1810)
+WEYL = 0x9E3779B9
+
+
 def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                    iray: V3, seed, sec, page,
                    counts: dict | None = None):
-    """Full multi-bounce trace (tracer_core.trace_wave_env, unfused,
-    samples == 1).  seed: int64 uint32 states; page: i32 [n] start page
-    of each ray.  Returns (col: C4, dist)."""
+    """Full multi-bounce trace (tracer_core.trace_wave_env, unfused).
+    seed: int64 uint32 states; page: i32 [n] start page of each ray.
+    Returns (col: C4, dist).
+
+    The primary wave consumes no RNG, so it is traced once and shared:
+    each of the cfg.samples chains shades it with its own seed stream
+    (seed + k*WEYL in uint32) and runs waves 1..reflect.  The colour is
+    the chains' mean, summed in sample order and scaled by
+    f32(1/samples); dist is the primary wave's."""
     check_config(cfg, wt.n_pages)
     math = make_math(wt, cfg.parity)
     sec = float(np.float32(sec))
     one = torch.ones_like(ifrom.x)
-    active = one > 0.0
-    icol = C4(one, one, one, one)
-    bases, refls, bounces, fogs = [], [], [], []
-    cur_from, cur_ray = ifrom, iray
-    dist0 = None
-    for k in range(cfg.n_waves):
-        out = run_segment(wt, cfg, math, cur_from, cur_ray, active, page,
-                          counts)
-        page = out.tpage      # bounce waves continue in the hit's page
-        if k == 0:
-            dist0 = out.tdist
-        base, refl, bounce, mpos, mray, seed = shade_and_bounce(
-            out, icol, seed, sec, k < cfg.reflect, math)
-        bases.append(base)
-        refls.append(refl)
-        bounces.append(bounce)
-        fogs.append(out.tfog)
-        icol = base
-        cur_from, cur_ray = mpos, mray
-        active = bounce
-    col = bases[-1]
-    for k in range(cfg.n_waves - 2, -1, -1):
-        blended = col * refls[k] + bases[k] * (1.0 - refls[k])
-        fogf = math.exp(-0.6 * fogs[k])
-        fogged = blended * fogf + (1.0 - fogf)
-        res = fogged.where(fogs[k] != 0.0, blended)
-        col = res.where(bounces[k], bases[k])
-    return col, dist0
+    icol0 = C4(one, one, one, one)
+    out0 = run_segment(wt, cfg, math, ifrom, iray, one > 0.0, page, counts)
+
+    def chain(seed):
+        """Shade + bounce waves 1.. from the shared primary SegOut, then
+        the backward unwind blend (tracer_core.py:1774-1802)."""
+        bases, refls, bounces, fogs = [], [], [], []
+        out, icol = out0, icol0
+        for k in range(cfg.n_waves):
+            if k > 0:
+                out = run_segment(wt, cfg, math, cur_from, cur_ray, active,
+                                  pg, counts)
+            pg = out.tpage    # bounce waves continue in the hit's page
+            base, refl, bounce, mpos, mray, seed = shade_and_bounce(
+                out, icol, seed, sec, k < cfg.reflect, math)
+            bases.append(base)
+            refls.append(refl)
+            bounces.append(bounce)
+            fogs.append(out.tfog)
+            icol = base
+            cur_from, cur_ray = mpos, mray
+            active = bounce
+        col = bases[-1]
+        for k in range(cfg.n_waves - 2, -1, -1):
+            blended = col * refls[k] + bases[k] * (1.0 - refls[k])
+            fogf = math.exp(-0.6 * fogs[k])
+            fogged = blended * fogf + (1.0 - fogf)
+            res = fogged.where(fogs[k] != 0.0, blended)
+            col = res.where(bounces[k], bases[k])
+        return col
+
+    if cfg.samples == 1:
+        return chain(seed), out0.tdist
+    acc = chain(seed)
+    for k in range(1, cfg.samples):
+        # uint32 held in int64: mask after the add (k*WEYL >= 2^31)
+        acc = acc + chain((seed + ((k * WEYL) & 0xFFFFFFFF)) & 0xFFFFFFFF)
+    inv = float(np.float32(1.0 / cfg.samples))
+    return acc * inv, out0.tdist
 
 
 def col_ftoint(col: C4) -> torch.Tensor:

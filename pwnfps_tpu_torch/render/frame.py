@@ -5,10 +5,14 @@ On CUDA tensors the trace and the blur are one kernel launch each
 (ops/tracer.py, ops/blur.py); on CPU tensors both take their plain
 torch versions.  Fast mode and parity mode (`cfg.parity`) on one page;
 fast mode on a paged world, every primary ray starting on
-`cfg.cam_page`.
+`cfg.cam_page`.  `render_accumulated` is the multi-sample frame
+(BASELINE config #5): the trace averages `samples` bounce chains a
+pixel in the same one launch.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -93,6 +97,20 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     if cfg.postproc_blur:
         fb = dof_blur(fb, zbuf, cfg.postproc_blur)
     return fb, zbuf
+
+
+def render_accumulated(world: TorchWorld, meta: WorldMeta,
+                       cfg: RenderConfig, origin, rayb, rdx, rdy, sec,
+                       samples: int = 4):
+    """Distribution path tracing (pwnfps_tpu/render/frame.py:186-218):
+    the mean of `samples` chains a pixel, whose reflect jitter draws from
+    the seed streams pixel_seed + k*0x9E3779B9, sharing the primary wave.
+    Fast mode only.  Returns (fb [h, w] int32 BGRA of the mean, zbuf
+    [h, w] of the primary wave), with cfg.postproc_blur DoF passes on
+    that zbuf."""
+    return render_frame(world, meta, dataclasses.replace(cfg,
+                                                         samples=samples),
+                        origin, rayb, rdx, rdy, sec)
 
 
 def upscale(fb: np.ndarray, scale: int) -> np.ndarray:

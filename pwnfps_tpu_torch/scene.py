@@ -22,6 +22,21 @@ The third is BASELINE config #3 (benchmarks/configs.py:175-222):
     `portal_camera` gives a camera that faces a cross-page portal
     instead: from the spawn cell, few primary rays leave the spawn page.
 
+The last two are BASELINE configs #5 and #4 as configs.py runs them
+without the reference checkout: on the demo level (the level configs.py
+falls back to), with the first six creature spheres (configs.py's `OPOS`,
+tests/test_tracer_scalar.py:26-31) centred at (9.5, 0.3, 5.5), the
+camera at the spawn point, nothing cut.  On this level that centre lies
+inside the wall cell (9, 5), so no ray sees the spheres, though every
+segment still tests them:
+
+  * `ptrace_scene`: config #5 (configs.py:286-321), 1920x1080, fast
+    mode, reflect=6, samples=4, one DoF pass, the camera yawing 0.05 rad
+    and the clock advancing 0.016 s per frame (render_accumulated);
+  * `multicam_scene`: config #4 (configs.py:225-283), 64 cameras at
+    160x120 with no blur, camera k yawed 0.1*k rad, the clock advancing
+    0.1 s per step (parallel/sharding.render_cameras).
+
 Shared by chip_smoke.py and the tests, so both drive the same scenes.
 Each runs on the card unless the caller asks for another device.
 """
@@ -45,6 +60,8 @@ from .world.procgen import generate_sector_maze
 LEVEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "levels", "demo.txt")
 CREATURE_AT = (3.5, 0.3, 5.5)
+# configs.py's sphere centre (configs.py:237, :301)
+CONFIGS_AT = (9.5, 0.3, 5.5)
 
 # the 14-sphere creature (game.lua:1-30): offset x, y, z, radius,
 # colour b, g, r, reflectance
@@ -72,7 +89,8 @@ class Scene:
     cfg: RenderConfig
     cam: np.ndarray          # 4x4 camera at frame 0
     yaw_step: float          # camera yaw per frame, rad
-    sec_step: float          # clock advance per frame, s
+    sec_step: float          # clock advance per frame (or step), s
+    cams: np.ndarray | None = None   # [C, 4, 4] camera batch, if any
 
     def frame_args(self, k: int):
         """(origin, rayb, rdx, rdy, sec) of frame k of the camera path,
@@ -82,6 +100,11 @@ class Scene:
         origin, rayb, rdx, rdy = camera_vectors(c, self.cfg.width,
                                                 self.cfg.height)
         return origin, rayb, rdx, rdy, np.float32(self.sec_step * k)
+
+    def step_args(self, k: int):
+        """(cams [C, 4, 4] float32, sec) of step k of a camera batch, as
+        configs.py:267-274 steps it: fixed cameras, the clock moving."""
+        return self.cams, np.float32(self.sec_step * k)
 
 
 def creature_pool(n: int = len(CREATURE), at=CREATURE_AT) -> ObjectPool:
@@ -94,9 +117,10 @@ def creature_pool(n: int = len(CREATURE), at=CREATURE_AT) -> ObjectPool:
 
 
 def _demo_scene(device, n_spheres: int, cfg: RenderConfig,
-                yaw_step: float, sec_step: float) -> Scene:
+                yaw_step: float, sec_step: float,
+                at=CREATURE_AT) -> Scene:
     lv = load_level(LEVEL)
-    sph = creature_pool(n_spheres).prepare_render()
+    sph = creature_pool(n_spheres, at).prepare_render()
     world, meta = W.build_world(lv, sph, SseTables.load())
     cam = mat4_identity()
     sx, sz = lv.spawn
@@ -120,6 +144,34 @@ def parity_scene(width: int = 320, height: int = 240, device="cuda",
     one DoF pass) on the demo level, at width x height on `device`."""
     cfg = RenderConfig(width=width, height=height, parity=True, **cfg_kw)
     return _demo_scene(device, n_spheres, cfg, 0.8, 0.4)
+
+
+def ptrace_scene(width: int = 1920, height: int = 1080, device="cuda",
+                 **cfg_kw) -> Scene:
+    """BASELINE config #5's frame (configs.py:286-321: reflect=6,
+    samples=4, one DoF pass) at width x height on `device`; cfg_kw
+    override RenderConfig fields.  Render it with render_accumulated
+    (samples=cfg.samples)."""
+    kw = {"reflect": 6, "samples": 4, "postproc_blur": 1, **cfg_kw}
+    cfg = RenderConfig(width=width, height=height, parity=False, **kw)
+    return _demo_scene(device, 6, cfg, 0.05, 0.016, CONFIGS_AT)
+
+
+def multicam_scene(device="cuda", n_cams: int = 64, **cfg_kw) -> Scene:
+    """BASELINE config #4 (configs.py:225-283): n_cams cameras at the
+    spawn point, camera k yawed 0.1*k rad, 160x120, no blur, on `device`;
+    cfg_kw override RenderConfig fields (width and height included).
+    Step it with step_args and render_cameras."""
+    kw = {"width": 160, "height": 120, "postproc_blur": 0, **cfg_kw}
+    sc = _demo_scene(device, 6, RenderConfig(parity=False, **kw), 0.0, 0.1,
+                     CONFIGS_AT)
+    cams = []
+    for k in range(n_cams):
+        c = sc.cam.copy()
+        mat4_roty(c, 0.1 * k)
+        cams.append(c)
+    sc.cams = np.stack(cams).astype(np.float32)
+    return sc
 
 
 def maze_scene(width: int = 1280, height: int = 720, device="cuda",

@@ -6,13 +6,15 @@ need not have, so run these there with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Small versions of chip_smoke.py's phases 3-8: the blur kernel equals the
-plain pass bit for bit; the tracer kernel equals the plain tracer bit
-for bit in fb and zbuf (the same device math functions, no FMA
-contraction on either side), in fast mode on one page and on the paged
-maze, and in parity mode, where it also equals the plain parity tracer
-run on the host's CPU; render_frame launches each kernel once per
-frame."""
+Small versions of chip_smoke.py's phases 3-10: the blur kernel equals
+the plain pass bit for bit, on one frame and on stacked camera frames
+(where it also equals one launch per frame); the tracer kernel equals
+the plain tracer bit for bit in fb and zbuf (the same device math
+functions, no FMA contraction on either side), in fast mode on one page,
+on the paged maze, with samples > 1 and over a camera batch, and in
+parity mode, where it also equals the plain parity tracer run on the
+host's CPU; render_frame, render_accumulated and render_cameras launch
+each kernel once per frame or step."""
 
 import numpy as np
 import pytest
@@ -20,9 +22,12 @@ import torch
 
 from pwnfps_tpu_torch.ops import blur, tracer
 from pwnfps_tpu_torch.ops.vec import V3
-from pwnfps_tpu_torch.render.frame import gen_rays, pixel_seeds, render_frame
+from pwnfps_tpu_torch.parallel.sharding import camera_rays, render_cameras
+from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
+                                           render_accumulated, render_frame)
 from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,
-                                    parity_scene, portal_camera)
+                                    multicam_scene, parity_scene,
+                                    portal_camera, ptrace_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +165,84 @@ def test_maze_render_frame_launches_paged_kernel_once(dev):
             blur.LAUNCHES - before[2]) == (0, 1, 1)
     assert fb.shape == (72, 128) and torch.isfinite(zb).all()
     assert torch.unique(fb).numel() > 100
+
+
+def _counts():
+    return (tracer.LAUNCHES, tracer.LAUNCHES_PAGED, tracer.LAUNCHES_SAMPLES,
+            tracer.LAUNCHES_PARITY, blur.LAUNCHES, blur.LAUNCHES_FRAMES)
+
+
+def _delta(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+@pytest.mark.parametrize("world", ["ptrace", "maze"])
+def test_samples_kernel_matches_plain(dev, world):
+    """96x54 frames with samples > 1: config #5's scene (samples=4,
+    reflect=6) and the maze from a portal-facing camera (samples=2)."""
+    if world == "ptrace":
+        sc = ptrace_scene(96, 54, dev)
+    else:
+        sc = maze_scene(96, 54, dev, samples=2)
+        sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    page0 = sc.cfg.cam_page
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0)
+    assert _delta(before) == (0, 0, 1, 0, 0, 0)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+def test_render_accumulated_launches_samples_kernel_once(dev):
+    sc = ptrace_scene(128, 72, dev)
+    before = _counts()
+    fb, zb = render_accumulated(sc.tworld, sc.meta, sc.cfg,
+                                *sc.frame_args(2), samples=sc.cfg.samples)
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 0, 1, 0, 1, 0)
+    assert fb.shape == (72, 128) and torch.isfinite(zb).all()
+    assert torch.unique(fb).numel() > 100
+
+
+def test_camera_batch_kernels_match_plain(dev):
+    """8 cameras at 32x24: the batch's trace against the plain tracer,
+    the per-camera blur against its plain version and against one
+    launch per frame."""
+    sc = multicam_scene(dev, n_cams=8, width=32, height=24)
+    cams, sec = sc.step_args(1)
+    ifrom, rays, seeds = camera_rays(sc.cfg, torch.from_numpy(cams).to(dev),
+                                     pixel_seeds(32, 24, dev))
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds, sec,
+                                  pack=True)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+    fbs, zs = fb_k.reshape(8 * 24, 32), z_k.reshape(8 * 24, 32)
+    before = _counts()
+    got = blur.dof_blur(fbs, zs, 2, frame_h=24)
+    assert _delta(before) == (0, 0, 0, 0, 2, 2)
+    assert torch.equal(got, blur.dof_blur_plain(fbs, zs, 2, frame_h=24))
+    single = torch.cat([blur.dof_blur(fbs[c * 24:(c + 1) * 24],
+                                      zs[c * 24:(c + 1) * 24], 2)
+                        for c in range(8)])
+    assert torch.equal(got, single)
+
+
+@pytest.mark.parametrize("passes", [0, 1])
+def test_render_cameras_launches_once(dev, passes):
+    sc = multicam_scene(dev, n_cams=8, width=32, height=24,
+                        postproc_blur=passes)
+    before = _counts()
+    fb = render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(2))
+    torch.cuda.synchronize()
+    assert _delta(before) == (1, 0, 0, 0, passes, passes)
+    assert fb.shape == (8, 24, 32) and fb.device.type == "cuda"
+    assert all(torch.unique(fb[c]).numel() > 20 for c in range(8))
 
 
 def test_kernel_wrappers_reject_bad_inputs(dev):

@@ -97,7 +97,7 @@ def test_unported_world_and_config_raise(frames):
                        "cpu")
     with pytest.raises(NotImplementedError):
         render_frame(sc.tworld, sc.meta,
-                     dataclasses.replace(sc.cfg, samples=2),
+                     dataclasses.replace(sc.cfg, parity=True, samples=2),
                      *sc.frame_args(0))
     with pytest.raises(NotImplementedError):
         render_frame(sc.tworld, sc.meta,
@@ -107,8 +107,9 @@ def test_unported_world_and_config_raise(frames):
 
 def test_port_never_imports_jax():
     """Importing every module of the port and chip_smoke.py, building the
-    three scenes and rendering a tiny frame of each (fast, parity, the
-    paged maze) imports neither jax nor any module of the JAX package
+    scenes, rendering a tiny frame of each single-frame path (fast,
+    parity, the paged maze, the multi-sample frame) and a tiny camera
+    batch imports neither jax nor any module of the JAX package
     pwnfps_tpu."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -116,12 +117,21 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "from pwnfps_tpu_torch.render.frame import render_frame\n"
+        "from pwnfps_tpu_torch.parallel.sharding import render_cameras\n"
+        "from pwnfps_tpu_torch.render.frame import (render_accumulated,\n"
+        "                                           render_frame)\n"
         "from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,\n"
-        "                                    parity_scene)\n"
+        "                                    multicam_scene, parity_scene,\n"
+        "                                    ptrace_scene)\n"
         "for make in (flagship_scene, parity_scene, maze_scene):\n"
         "    sc = make(8, 4, 'cpu', maxsteps=64)\n"
         "    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))\n"
+        "sc = ptrace_scene(8, 4, 'cpu', maxsteps=64)\n"
+        "render_accumulated(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1),\n"
+        "                   samples=sc.cfg.samples)\n"
+        "sc = multicam_scene('cpu', n_cams=2, width=8, height=4,\n"
+        "                    maxsteps=64, postproc_blur=1)\n"
+        "render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(1))\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'pwnfps_tpu'))\n"
         "assert not bad, bad\n"

@@ -129,12 +129,15 @@ def test_unported_config_raises():
     sc = flagship_scene(8, 2, "cpu", n_spheres=3)
     rays = V3(*(torch.ones(4) for _ in range(3)))
     seeds = torch.zeros(4, dtype=torch.int32)
-    for kw in (dict(parity=True, samples=2), dict(samples=2),
+    for kw in (dict(parity=True, samples=2),
                dict(fused=True), dict(parity=True, fused=True),
                dict(profile=True), dict(probe="fire1"), dict(water=False)):
         cfg = dataclasses.replace(sc.cfg, **kw)
         with pytest.raises(NotImplementedError):
             tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
+    with pytest.raises(ValueError):
+        tracer.trace_wave(sc.tworld, dataclasses.replace(sc.cfg, samples=0),
+                          rays, rays, seeds, SEC)
     # a one-page world has no page 1 to start on
     with pytest.raises(ValueError):
         tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds, SEC, page0=1)
