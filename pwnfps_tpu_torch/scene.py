@@ -37,6 +37,10 @@ segment still tests them:
     160x120 with no blur, camera k yawed 0.1*k rad, the clock advancing
     0.1 s per step (parallel/sharding.render_cameras).
 
+`mesh_for` gives the device mesh the multi-device path
+(parallel/sharding.py) renders these scenes on: by default one card
+repeated, a virtual mesh.
+
 Shared by chip_smoke.py and the tests, so both drive the same scenes.
 Each runs on the card unless the caller asks for another device.
 """
@@ -47,11 +51,13 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from .core.approx import SseTables
 from .core.config import RenderConfig
 from .ops import worlddev as W
 from .ops.world import TorchWorld, world_to_torch
+from .parallel.sharding import Mesh, make_mesh
 from .render.camera import camera_vectors, mat4_identity, mat4_roty
 from .world.levelc import load_level
 from .world.objects import ObjectPool
@@ -223,3 +229,16 @@ def portal_camera(sc: Scene) -> np.ndarray:
     cam[3, :3] = (x + dx + 0.5 + 0.13 * dz, 0.5, z + dz + 0.5 + 0.13 * dx)
     mat4_roty(cam, float(np.arctan2(-dx, -dz)) + 0.1)
     return cam
+
+
+def mesh_for(n_cam: int, n_px: int, device="cuda",
+             distinct: bool = False) -> Mesh:
+    """An (n_cam, n_px) mesh of `device` repeated n_cam * n_px times, or,
+    with distinct=True on a machine with that many cards, of cards 0 ..
+    n_cam * n_px - 1."""
+    n = n_cam * n_px
+    if distinct and torch.device(device).type == "cuda" \
+            and torch.cuda.device_count() >= n:
+        return make_mesh(n_cam, n_px, [torch.device("cuda", i)
+                                       for i in range(n)])
+    return make_mesh(n_cam, n_px, [device] * n)

@@ -14,7 +14,11 @@ functions, no FMA contraction on either side), in fast mode on one page,
 on the paged maze, with samples > 1 and over a camera batch, and in
 parity mode, where it also equals the plain parity tracer run on the
 host's CPU; render_frame, render_accumulated and render_cameras launch
-each kernel once per frame or step."""
+each kernel once per frame or step.  The band blur kernel equals its
+plain version and the frame kernel's rows on every band, and on a
+virtual mesh of the card repeated 8 times render_frame_sharded equals
+render_frame and render_cameras with a mesh equals it without (phase
+11's checks, small)."""
 
 import numpy as np
 import pytest
@@ -22,10 +26,12 @@ import torch
 
 from pwnfps_tpu_torch.ops import blur, tracer
 from pwnfps_tpu_torch.ops.vec import V3
-from pwnfps_tpu_torch.parallel.sharding import camera_rays, render_cameras
+from pwnfps_tpu_torch.parallel.sharding import (_halo, camera_rays,
+                                                render_cameras,
+                                                render_frame_sharded)
 from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
                                            render_accumulated, render_frame)
-from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,
+from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene, mesh_for,
                                     multicam_scene, parity_scene,
                                     portal_camera, ptrace_scene)
 
@@ -263,3 +269,61 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
                           pack=True)
     with pytest.raises(NotImplementedError):          # unpacked colour
         tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds, 0.0)
+
+
+@pytest.mark.parametrize("h,w,hb,cl", [(64, 130, 16, 2), (200, 203, 32, 3)])
+def test_band_blur_kernel_equals_plain(dev, h, w, hb, cl):
+    """The band kernel on every band of cl padded frames, pad rows past
+    the frame included, reach just under 47.5 rows: equal to its plain
+    version, and its real rows to the frame kernel's."""
+    nrow = -(-h // hb)
+    _, H = _halo(hb, nrow)
+    rng = np.random.default_rng(h * w)
+    fb = rng.integers(0, 2 ** 32, (cl, h, w), dtype=np.uint64)
+    fb = torch.from_numpy(fb.astype(np.uint32).view(np.int32)).to(dev)
+    zmax = 1.0 + 47.4 / (0.002 * h)
+    z = torch.from_numpy(rng.uniform(1.0, zmax, (cl, h, w)).astype(
+        np.float32)).to(dev)
+    full = blur.dof_blur(fb, z)
+    hp2 = hb * nrow
+    fbp = torch.nn.functional.pad(fb, (0, 0, H, hp2 - h + H))
+    zp = torch.nn.functional.pad(z, (0, 0, 0, hp2 - h), value=1.0)
+    for y0 in range(0, hp2, hb):
+        fp = fbp[:, y0:y0 + hb + 2 * H].contiguous()
+        zb = zp[:, y0:y0 + hb].contiguous()
+        before = (blur.LAUNCHES, blur.LAUNCHES_BAND)
+        got = blur.dof_blur_band(fp, zb, y0, h)
+        assert (blur.LAUNCHES, blur.LAUNCHES_BAND) == (before[0],
+                                                       before[1] + 1)
+        assert torch.equal(got, blur.dof_blur_band_plain(fp, zb, y0, h))
+        live = min(hb, h - y0)
+        assert torch.equal(got[:, :live], full[:, y0:y0 + live])
+
+
+@pytest.mark.parametrize("h", [64, 40])
+def test_sharded_frame_equals_render_frame(dev, h):
+    """96x64 bands (8 rows a device), 96x40 takes the flat path: 8 trace
+    and 8 band blur launches a frame either way, no frame blur."""
+    sc = flagship_scene(96, h, dev)
+    args = sc.frame_args(2)
+    before = (_counts(), blur.LAUNCHES_BAND)
+    fb, zb = render_frame_sharded(sc.tworld, sc.meta, sc.cfg, *args,
+                                  mesh_for(2, 4, dev))
+    torch.cuda.synchronize()
+    assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
+        (8, 0, 0, 0, 0, 0), 8)
+    fb1, zb1 = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
+    assert torch.equal(fb, fb1)
+    assert torch.equal(zb.view(torch.int32), zb1.view(torch.int32))
+
+
+def test_meshed_cameras_equal_one_device(dev):
+    sc = multicam_scene(dev, n_cams=8, width=32, height=32, postproc_blur=1)
+    before = (_counts(), blur.LAUNCHES_BAND)
+    fb = render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(2),
+                        mesh_for(2, 4, dev))
+    torch.cuda.synchronize()
+    assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
+        (8, 0, 0, 0, 0, 0), 8)
+    assert torch.equal(fb, render_cameras(sc.tworld, sc.meta, sc.cfg,
+                                          *sc.step_args(2)))

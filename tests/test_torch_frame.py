@@ -108,21 +108,22 @@ def test_unported_world_and_config_raise(frames):
 def test_port_never_imports_jax():
     """Importing every module of the port and chip_smoke.py, building the
     scenes, rendering a tiny frame of each single-frame path (fast,
-    parity, the paged maze, the multi-sample frame) and a tiny camera
-    batch imports neither jax nor any module of the JAX package
-    pwnfps_tpu."""
+    parity, the paged maze, the multi-sample frame), a tiny camera
+    batch, a frame sharded over a mesh and a camera step on a mesh
+    imports neither jax nor any module of the JAX package pwnfps_tpu."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import pwnfps_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "from pwnfps_tpu_torch.parallel.sharding import render_cameras\n"
+        "from pwnfps_tpu_torch.parallel.sharding import (\n"
+        "    render_cameras, render_frame_sharded)\n"
         "from pwnfps_tpu_torch.render.frame import (render_accumulated,\n"
         "                                           render_frame)\n"
         "from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,\n"
-        "                                    multicam_scene, parity_scene,\n"
-        "                                    ptrace_scene)\n"
+        "                                    mesh_for, multicam_scene,\n"
+        "                                    parity_scene, ptrace_scene)\n"
         "for make in (flagship_scene, parity_scene, maze_scene):\n"
         "    sc = make(8, 4, 'cpu', maxsteps=64)\n"
         "    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))\n"
@@ -132,6 +133,11 @@ def test_port_never_imports_jax():
         "sc = multicam_scene('cpu', n_cams=2, width=8, height=4,\n"
         "                    maxsteps=64, postproc_blur=1)\n"
         "render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(1))\n"
+        "render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(1),\n"
+        "               mesh_for(2, 1, 'cpu'))\n"
+        "sc = flagship_scene(8, 16, 'cpu', maxsteps=64)\n"
+        "render_frame_sharded(sc.world, sc.meta, sc.cfg, *sc.frame_args(1),\n"
+        "                     mesh_for(1, 2, 'cpu'))\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'pwnfps_tpu'))\n"
         "assert not bad, bad\n"
