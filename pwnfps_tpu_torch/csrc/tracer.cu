@@ -34,7 +34,10 @@
 //     in integer ops and single IEEE adds and multiplies, so its bits
 //     depend on no device math library: it equals the plain parity
 //     tracer, which the CPU tests hold bit for bit to the scalar spec
-//     ops/tracer_ref.ScalarTracer(pinned=True).
+//     ops/tracer_ref.ScalarTracer(pinned=True).  With samples > 1 the
+//     parity march runs once and each sample's parity chain runs from
+//     it, as in fast mode: a fourth instance (P = S = true), whose SSE
+//     tables stay in shared memory across the chains.
 //
 // What bounds it on the H100: divergence and latency, not bandwidth.  A
 // ray's work is a data-dependent loop (a few steps for a wall hit, up to
@@ -962,7 +965,7 @@ struct Params {
     const uint32_t* rcp_tab;  // parity mode only
     int n, n_spheres, k_bucket, maxsteps, reflect, skip;
     int n_pages, sphere_page, page0;
-    int samples;              // bounce chains a ray (fast mode)
+    int samples;              // bounce chains a ray
     float sec, slack, inv_mod;
     float inv;                // f32(1 / samples), rounded on the host
     int32_t* out_fb;
@@ -1128,12 +1131,14 @@ int launch(const Params& a, void* stream) {
             || a.reflect + 1 > MAX_WAVES || a.n_pages < 1 || a.n_pages > 16
             || a.sphere_page < 0 || a.sphere_page >= a.n_pages
             || a.page0 < 0 || a.page0 >= a.n_pages || (P && a.n_pages != 1)
-            || a.samples < 1 || (P && a.samples != 1)
+            || a.samples < 1
             || (P && (a.k_bucket < 0 || (a.k_bucket > 0
                                          && a.n_spheres == 0))))
         return (int)cudaErrorInvalidValue;
     if (a.n <= 0) return (int)cudaGetLastError();
-    if (P) return launch_instance<true, false>(a, stream);
+    if (P)
+        return a.samples > 1 ? launch_instance<true, true>(a, stream)
+                             : launch_instance<true, false>(a, stream);
     return a.samples > 1 ? launch_instance<false, true>(a, stream)
                          : launch_instance<false, false>(a, stream);
 }
@@ -1187,16 +1192,17 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
     return launch<false>(a, stream);
 }
 
-// Trace n rays in parity mode.  As pwnfps_trace, less the bound and the
-// skip, plus the bucket table [4096 * k_bucket] i32 and the SSE rsqrt
-// [8192] and rcp [4096] tables (uint32 bits).
+// Trace n rays in parity mode.  As pwnfps_trace, less the bound, the
+// skip and the pages, plus the bucket table [4096 * k_bucket] i32 and the
+// SSE rsqrt [8192] and rcp [4096] tables (uint32 bits).
 extern "C" int pwnfps_trace_parity(
         const void* ox, const void* oy, const void* oz, const void* dx,
         const void* dy, const void* dz, const void* seeds, const void* ent,
         const void* word, const void* sph, const void* buckets,
         const void* rsq_tab, const void* rcp_tab, int n, int n_spheres,
-        int k_bucket, int maxsteps, int reflect, float sec, float inv_mod,
-        void* out_fb, void* out_dist, void* stream) {
+        int k_bucket, int maxsteps, int reflect, int samples, float sec,
+        float inv_mod, float inv, void* out_fb, void* out_dist,
+        void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -1217,8 +1223,8 @@ extern "C" int pwnfps_trace_parity(
     a.maxsteps = maxsteps;
     a.reflect = reflect;
     a.n_pages = 1;
-    a.samples = 1;
-    a.inv = 1.0f;
+    a.samples = samples;
+    a.inv = inv;
     a.sec = sec;
     a.inv_mod = inv_mod;
     a.out_fb = (int32_t*)out_fb;

@@ -8,7 +8,7 @@ fast mode, `pwnfps_trace_parity` when `cfg.parity` is set.  The kernel
 replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel: one
 page in both modes, and paged worlds in fast mode, where every ray
 starts on the scalar page `page0` (the TPU kernel's `page0_ref`,
-tracer_pallas.py:648).  In fast mode `cfg.samples > 1` traces the
+tracer_pallas.py:648).  In either mode `cfg.samples > 1` traces the
 primary wave once and `samples` bounce chains from it, and writes their
 mean (tracer_core.trace_wave_env).
 """
@@ -31,16 +31,18 @@ from .world import SPH_COLS, TorchWorld
 # count), each launch in one counter: LAUNCHES fast mode on a one-page
 # world, LAUNCHES_PAGED fast mode on a paged world (the same entry),
 # LAUNCHES_SAMPLES fast mode with cfg.samples > 1 (the same entry, on
-# either kind of world), LAUNCHES_PARITY parity mode
+# either kind of world), LAUNCHES_PARITY parity mode with one sample,
+# LAUNCHES_PARITY_SAMPLES parity mode with cfg.samples > 1 (the same entry)
 LAUNCHES = 0
 LAUNCHES_PAGED = 0
 LAUNCHES_SAMPLES = 0
 LAUNCHES_PARITY = 0
+LAUNCHES_PARITY_SAMPLES = 0
 # C entry points of csrc/tracer.cu
 _SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
          + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3,
-         "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-         + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3}
+         "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3}
 
 
 def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
@@ -87,7 +89,8 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
             seed: torch.Tensor, sec, page0: int):
-    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_PARITY
+    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_PARITY, \
+        LAUNCHES_PARITY_SAMPLES
     n = ifrom.x.shape[0]
     dev = ifrom.x.device
     # the contiguous copies must outlive the launch: keep them here
@@ -97,6 +100,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     dist = torch.empty(n, dtype=torch.float32, device=dev)
     lib = _build.load("tracer", _SIGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    inv = float(np.float32(1.0 / cfg.samples))
     with torch.cuda.device(dev):
         if cfg.parity:
             err = lib.pwnfps_trace_parity(
@@ -104,8 +108,8 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 wt.sph.data_ptr(), wt.buckets.data_ptr(),
                 wt.rsqrt_tab.data_ptr(), wt.rcp_tab.data_ptr(),
                 n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
-                float(np.float32(sec)), lcg.INV_MOD_F, fb.data_ptr(),
-                dist.data_ptr(), stream)
+                cfg.samples, float(np.float32(sec)), lcg.INV_MOD_F, inv,
+                fb.data_ptr(), dist.data_ptr(), stream)
         else:
             err = lib.pwnfps_trace(
                 *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
@@ -113,12 +117,13 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
                 int(cfg.space_skip and wt.skip_ok), wt.n_pages,
                 wt.sphere_page, page0, cfg.samples, float(np.float32(sec)),
-                float(np.float32(wt.slack)), lcg.INV_MOD_F,
-                float(np.float32(1.0 / cfg.samples)), fb.data_ptr(),
-                dist.data_ptr(), stream)
+                float(np.float32(wt.slack)), lcg.INV_MOD_F, inv,
+                fb.data_ptr(), dist.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
-    if cfg.parity:
+    if cfg.parity and cfg.samples > 1:
+        LAUNCHES_PARITY_SAMPLES += 1
+    elif cfg.parity:
         LAUNCHES_PARITY += 1
     elif cfg.samples > 1:
         LAUNCHES_SAMPLES += 1

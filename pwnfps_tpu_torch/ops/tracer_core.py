@@ -858,7 +858,6 @@ def check_config(cfg: RenderConfig, n_pages: int = 1) -> None:
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
     ignored."""
     missing = [name for name, bad in (
-        ("samples>1 in parity mode", cfg.parity and cfg.samples != 1),
         ("fused=True", cfg.fused), ("profile=True", cfg.profile),
         ("probe", bool(cfg.probe)), ("water=False", not cfg.water),
         ("paged worlds in parity mode", cfg.parity and n_pages > 1))

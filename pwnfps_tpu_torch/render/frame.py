@@ -6,8 +6,8 @@ On CUDA tensors the trace and the blur are one kernel launch each
 torch versions.  Fast mode and parity mode (`cfg.parity`) on one page;
 fast mode on a paged world, every primary ray starting on
 `cfg.cam_page`.  `render_accumulated` is the multi-sample frame
-(BASELINE config #5): the trace averages `samples` bounce chains a
-pixel in the same one launch.
+(BASELINE config #5), in either mode: the trace averages `samples`
+bounce chains a pixel in the same one launch.
 """
 
 from __future__ import annotations
@@ -105,7 +105,8 @@ def render_accumulated(world: TorchWorld, meta: WorldMeta,
     """Distribution path tracing (pwnfps_tpu/render/frame.py:186-218):
     the mean of `samples` chains a pixel, whose reflect jitter draws from
     the seed streams pixel_seed + k*0x9E3779B9, sharing the primary wave.
-    Fast mode only.  Returns (fb [h, w] int32 BGRA of the mean, zbuf
+    Fast mode, or parity mode (cfg.parity) on a one-page world, where
+    each chain is the pixel-exact parity chain.  Returns (fb [h, w] int32 BGRA of the mean, zbuf
     [h, w] of the primary wave), with cfg.postproc_blur DoF passes on
     that zbuf."""
     return render_frame(world, meta, dataclasses.replace(cfg,

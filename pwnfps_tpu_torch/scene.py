@@ -31,11 +31,21 @@ inside the wall cell (9, 5), so no ray sees the spheres, though every
 segment still tests them:
 
   * `ptrace_scene`: config #5 (configs.py:286-321), 1920x1080, fast
-    mode, reflect=6, samples=4, one DoF pass, the camera yawing 0.05 rad
-    and the clock advancing 0.016 s per frame (render_accumulated);
+    mode (or, with parity=True, the pixel-exact parity chains), reflect=6,
+    samples=4, one DoF pass, the camera yawing 0.05 rad and the clock
+    advancing 0.016 s per frame (render_accumulated);
   * `multicam_scene`: config #4 (configs.py:225-283), 64 cameras at
     160x120 with no blur, camera k yawed 0.1*k rad, the clock advancing
     0.1 s per step (parallel/sharding.render_cameras).
+
+BASELINE config #2 (benchmarks/configs.py:165-171, rendered by
+`_std_render`, :79-106):
+
+  * `stress_scene`: `make_portal_chain(10)`, a corridor through ten
+    chained portal pairs, no spheres, fast mode at 1280x720, reflect=2,
+    one DoF pass, the camera at (1.5, 0.5, 1.5) turned 1.5707964 rad to
+    face down the chain, yawing a further 0.05 rad and the clock
+    advancing 0.016 s per frame.
 
 `mesh_for` gives the device mesh the multi-device path
 (parallel/sharding.py) renders these scenes on: by default one card
@@ -61,7 +71,7 @@ from .parallel.sharding import Mesh, make_mesh
 from .render.camera import camera_vectors, mat4_identity, mat4_roty
 from .world.levelc import load_level
 from .world.objects import ObjectPool
-from .world.procgen import generate_sector_maze
+from .world.procgen import generate_sector_maze, make_portal_chain
 
 LEVEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "levels", "demo.txt")
@@ -153,13 +163,13 @@ def parity_scene(width: int = 320, height: int = 240, device="cuda",
 
 
 def ptrace_scene(width: int = 1920, height: int = 1080, device="cuda",
-                 **cfg_kw) -> Scene:
+                 parity: bool = False, **cfg_kw) -> Scene:
     """BASELINE config #5's frame (configs.py:286-321: reflect=6,
-    samples=4, one DoF pass) at width x height on `device`; cfg_kw
-    override RenderConfig fields.  Render it with render_accumulated
-    (samples=cfg.samples)."""
+    samples=4, one DoF pass) at width x height on `device`, in fast mode
+    or, with parity=True, in parity mode; cfg_kw override RenderConfig
+    fields.  Render it with render_accumulated (samples=cfg.samples)."""
     kw = {"reflect": 6, "samples": 4, "postproc_blur": 1, **cfg_kw}
-    cfg = RenderConfig(width=width, height=height, parity=False, **kw)
+    cfg = RenderConfig(width=width, height=height, parity=parity, **kw)
     return _demo_scene(device, 6, cfg, 0.05, 0.016, CONFIGS_AT)
 
 
@@ -178,6 +188,24 @@ def multicam_scene(device="cuda", n_cams: int = 64, **cfg_kw) -> Scene:
         cams.append(c)
     sc.cams = np.stack(cams).astype(np.float32)
     return sc
+
+
+def stress_scene(width: int = 1280, height: int = 720, device="cuda",
+                 **cfg_kw) -> Scene:
+    """BASELINE config #2's frame (configs.py:165-171 through
+    _std_render, :79-106: the portal chain of ten pairs, no spheres, fast
+    mode, reflect=2, one DoF pass) at width x height on `device`; cfg_kw
+    override RenderConfig fields."""
+    lv = make_portal_chain(10)
+    world, meta = W.build_world(lv, ObjectPool().prepare_render(),
+                                SseTables.load())
+    cfg = RenderConfig(width=width, height=height, parity=False, **cfg_kw)
+    cam = mat4_identity()
+    cam[3, :3] = (1.5, 0.5, 1.5)
+    mat4_roty(cam, 1.5707964)            # face down the chain (+x)
+    return Scene(world=world, meta=meta,
+                 tworld=world_to_torch(world, meta, device), cfg=cfg,
+                 cam=cam, yaw_step=0.05, sec_step=0.016)
 
 
 def maze_scene(width: int = 1280, height: int = 720, device="cuda",

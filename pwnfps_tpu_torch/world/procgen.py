@@ -1,11 +1,12 @@
-"""Procedural paged worlds (BASELINE config #3).
-Copied from pwnfps_tpu/world/procgen.py (`generate_sector_maze` and
-`_portal_site` only; the cave generator `generate_maze` needs
-`jax.random` and is not copied).
+"""Procedural worlds (BASELINE configs #3 and #2).
+Copied from pwnfps_tpu/world/procgen.py (`generate_sector_maze`,
+`_portal_site`, `make_portal_chain` and `maze_text`; the cave generator
+`generate_maze` needs `jax.random` and is not copied).
 
 The sector maze is a multi-page world atlas: pages of 16 x 16 sectors,
 each a 2x2 interior behind 2-thick walls, linked by carved doorways
 within a page and by portals across pages, plus random teleport pairs.
+The portal chain is a one-page corridor of chained portal pairs.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 
 from ..core.config import FXN, FXP, FZN, FZP
 from ..ops import worlddev as W
-from .levelc import compile_level
+from .levelc import LevelData, compile_level
 
 
 def generate_sector_maze(seed: int = 0, pages: int = 4,
@@ -178,3 +179,26 @@ def _portal_site(p: int, i: int, j: int, side: str):
     if side == "W":
         return (p, x0 - 1, z0, FXP)
     return (p, x0 + 2, z0, FXN)         # "E"
+
+
+def make_portal_chain(n_pairs: int = 8) -> LevelData:
+    """Stress level (BASELINE config #2): a corridor where a straight ray
+    traverses `n_pairs` chained portals (plus more on each bounce)."""
+    if not 1 <= n_pairs <= 11:
+        raise ValueError("corridor layout fits <= 11 pairs in 64")
+    row = [".", ";", "*"]
+    for k in range(n_pairs):
+        letter = chr(ord("A") + k)
+        row += [letter, ".", letter, ";", ";"]
+    row += [";", "."]
+    width = len(row)
+    lines = ["." * width,
+             "".join(row),
+             "." * width]
+    text = "\n".join(lines) + "\n"
+    return compile_level(text.encode())
+
+
+def maze_text(lv: LevelData) -> str:
+    return "\n".join("".join(chr(c) for c in row).rstrip(".")
+                     for row in lv.grid)

@@ -18,13 +18,17 @@ each kernel once per frame or step.  The band blur kernel equals its
 plain version and the frame kernel's rows on every band, and on a
 virtual mesh of the card repeated 8 times render_frame_sharded equals
 render_frame and render_cameras with a mesh equals it without (phase
-11's checks, small)."""
+11's checks, small).  Phases 12-14, small: the parity samples instance
+equals the plain parity tracer and render_accumulated(parity) launches it
+once; the fast tracer equals the plain one on the portal chain (config
+#2); the probe kernels add_one and vpu_chains equal their plain
+versions."""
 
 import numpy as np
 import pytest
 import torch
 
-from pwnfps_tpu_torch.ops import blur, tracer
+from pwnfps_tpu_torch.ops import blur, probes, tracer
 from pwnfps_tpu_torch.ops.vec import V3
 from pwnfps_tpu_torch.parallel.sharding import (_halo, camera_rays,
                                                 render_cameras,
@@ -33,7 +37,9 @@ from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
                                            render_accumulated, render_frame)
 from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene, mesh_for,
                                     multicam_scene, parity_scene,
-                                    portal_camera, ptrace_scene)
+                                    portal_camera, ptrace_scene,
+                                    stress_scene)
+from pwnfps_tpu_torch.tools.vpu_probe import plane
 
 pytestmark = pytest.mark.cuda
 
@@ -175,7 +181,8 @@ def test_maze_render_frame_launches_paged_kernel_once(dev):
 
 def _counts():
     return (tracer.LAUNCHES, tracer.LAUNCHES_PAGED, tracer.LAUNCHES_SAMPLES,
-            tracer.LAUNCHES_PARITY, blur.LAUNCHES, blur.LAUNCHES_FRAMES)
+            tracer.LAUNCHES_PARITY, tracer.LAUNCHES_PARITY_SAMPLES,
+            blur.LAUNCHES, blur.LAUNCHES_FRAMES)
 
 
 def _delta(before):
@@ -196,7 +203,7 @@ def test_samples_kernel_matches_plain(dev, world):
     before = _counts()
     fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
                                   sec, pack=True, page0=page0)
-    assert _delta(before) == (0, 0, 1, 0, 0, 0)
+    assert _delta(before) == (0, 0, 1, 0, 0, 0, 0)
     fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
                                         seeds, sec, pack=True, page0=page0)
     assert torch.equal(fb_k, fb_p)
@@ -209,7 +216,7 @@ def test_render_accumulated_launches_samples_kernel_once(dev):
     fb, zb = render_accumulated(sc.tworld, sc.meta, sc.cfg,
                                 *sc.frame_args(2), samples=sc.cfg.samples)
     torch.cuda.synchronize()
-    assert _delta(before) == (0, 0, 1, 0, 1, 0)
+    assert _delta(before) == (0, 0, 1, 0, 0, 1, 0)
     assert fb.shape == (72, 128) and torch.isfinite(zb).all()
     assert torch.unique(fb).numel() > 100
 
@@ -231,7 +238,7 @@ def test_camera_batch_kernels_match_plain(dev):
     fbs, zs = fb_k.reshape(8 * 24, 32), z_k.reshape(8 * 24, 32)
     before = _counts()
     got = blur.dof_blur(fbs, zs, 2, frame_h=24)
-    assert _delta(before) == (0, 0, 0, 0, 2, 2)
+    assert _delta(before) == (0, 0, 0, 0, 0, 2, 2)
     assert torch.equal(got, blur.dof_blur_plain(fbs, zs, 2, frame_h=24))
     single = torch.cat([blur.dof_blur(fbs[c * 24:(c + 1) * 24],
                                       zs[c * 24:(c + 1) * 24], 2)
@@ -246,7 +253,7 @@ def test_render_cameras_launches_once(dev, passes):
     before = _counts()
     fb = render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(2))
     torch.cuda.synchronize()
-    assert _delta(before) == (1, 0, 0, 0, passes, passes)
+    assert _delta(before) == (1, 0, 0, 0, 0, passes, passes)
     assert fb.shape == (8, 24, 32) and fb.device.type == "cuda"
     assert all(torch.unique(fb[c]).numel() > 20 for c in range(8))
 
@@ -311,7 +318,7 @@ def test_sharded_frame_equals_render_frame(dev, h):
                                   mesh_for(2, 4, dev))
     torch.cuda.synchronize()
     assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
-        (8, 0, 0, 0, 0, 0), 8)
+        (8, 0, 0, 0, 0, 0, 0), 8)
     fb1, zb1 = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
     assert torch.equal(fb, fb1)
     assert torch.equal(zb.view(torch.int32), zb1.view(torch.int32))
@@ -324,6 +331,64 @@ def test_meshed_cameras_equal_one_device(dev):
                         mesh_for(2, 4, dev))
     torch.cuda.synchronize()
     assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
-        (8, 0, 0, 0, 0, 0), 8)
+        (8, 0, 0, 0, 0, 0, 0), 8)
     assert torch.equal(fb, render_cameras(sc.tworld, sc.meta, sc.cfg,
                                           *sc.step_args(2)))
+
+
+@pytest.mark.parametrize("scene,samples", [("parity", 2), ("ptrace", 4)])
+def test_parity_samples_kernel_matches_plain(dev, scene, samples):
+    """64x48: the parity scene at samples 2 (reflect 2) and config #5's
+    scene in parity mode (samples 4, reflect 6)."""
+    sc = (parity_scene(64, 48, dev, samples=samples) if scene == "parity"
+          else ptrace_scene(64, 48, dev, parity=True))
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True)
+    assert _delta(before) == (0, 0, 0, 0, 1, 0, 0)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+    before = _counts()
+    fb, zb = render_accumulated(sc.tworld, sc.meta, sc.cfg,
+                                *sc.frame_args(1), samples=samples)
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 0, 0, 0, 1, 1, 0)
+    assert torch.equal(zb.view(torch.int32), z_k.view(torch.int32).reshape(
+        48, 64))
+    assert torch.equal(fb, blur.dof_blur_plain(fb_k.reshape(48, 64), zb))
+
+
+def test_stress_kernel_matches_plain(dev):
+    sc = stress_scene(160, 90, dev)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True)
+    assert _delta(before) == (1, 0, 0, 0, 0, 0, 0)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+def test_probe_kernels_match_plain(dev):
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(3 * 64 + 1, 128)).astype(np.float32)).to(dev)
+    before = probes.LAUNCHES_ADD_ONE
+    got = probes.add_one(probes.add_one(x))
+    assert probes.LAUNCHES_ADD_ONE == before + 2
+    want = probes.add_one_plain(probes.add_one_plain(x))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    a = plane(dev)
+    # as many blocks as the card has SMs, as the probe runs it
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for variant in probes.OPS_PER_UPDATE:
+        for S in probes.S_VALUES:
+            before = probes.LAUNCHES_VPU
+            got = probes.vpu_chains(a, variant, S, 2, sms)
+            assert probes.LAUNCHES_VPU == before + 1
+            want = probes.vpu_chains_plain(a, variant, S, 2, sms)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -97,10 +97,6 @@ def test_unported_world_and_config_raise(frames):
                        "cpu")
     with pytest.raises(NotImplementedError):
         render_frame(sc.tworld, sc.meta,
-                     dataclasses.replace(sc.cfg, parity=True, samples=2),
-                     *sc.frame_args(0))
-    with pytest.raises(NotImplementedError):
-        render_frame(sc.tworld, sc.meta,
                      dataclasses.replace(sc.cfg, parity=True, fused=True),
                      *sc.frame_args(0))
 
@@ -108,11 +104,12 @@ def test_unported_world_and_config_raise(frames):
 def test_port_never_imports_jax():
     """Importing every module of the port and chip_smoke.py, building the
     scenes, rendering a tiny frame of each single-frame path (fast,
-    parity, the paged maze, the multi-sample frame), a tiny camera
-    batch, a frame sharded over a mesh and a camera step on a mesh
-    imports neither jax nor any module of the JAX package pwnfps_tpu."""
+    parity, the paged maze, the multi-sample frame in both modes, the
+    portal chain), a tiny camera batch, a frame sharded over a mesh and a
+    camera step on a mesh, and running both tools on the CPU imports
+    neither jax nor any module of the JAX package pwnfps_tpu."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import contextlib, io, sys, pkgutil, importlib\n"
         "import pwnfps_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -123,13 +120,23 @@ def test_port_never_imports_jax():
         "                                           render_frame)\n"
         "from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene,\n"
         "                                    mesh_for, multicam_scene,\n"
-        "                                    parity_scene, ptrace_scene)\n"
-        "for make in (flagship_scene, parity_scene, maze_scene):\n"
+        "                                    parity_scene, ptrace_scene,\n"
+        "                                    stress_scene)\n"
+        "from pwnfps_tpu_torch.tools import launch_probe, vpu_probe\n"
+        "for make in (flagship_scene, parity_scene, maze_scene,\n"
+        "             stress_scene):\n"
         "    sc = make(8, 4, 'cpu', maxsteps=64)\n"
         "    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))\n"
         "sc = ptrace_scene(8, 4, 'cpu', maxsteps=64)\n"
         "render_accumulated(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1),\n"
         "                   samples=sc.cfg.samples)\n"
+        "sc = ptrace_scene(8, 4, 'cpu', parity=True, maxsteps=64)\n"
+        "render_accumulated(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1),\n"
+        "                   samples=2)\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    launch_probe.main(['--device', 'cpu', '--ns', '1', '2',\n"
+        "                       '--reps', '1', '--tiles', '1', '--rows', '8'])\n"
+        "    vpu_probe.main(['--device', 'cpu', '--T', '1'])\n"
         "sc = multicam_scene('cpu', n_cams=2, width=8, height=4,\n"
         "                    maxsteps=64, postproc_blur=1)\n"
         "render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(1))\n"

@@ -22,7 +22,11 @@ scaled by f32(1/samples); the distance is the primary wave's
     apart, and jitting the whole chain fuses the blend into FMAs;
 (d) a 48x32 frame of `render_accumulated` against JAX's
     (backend jnp, samples=2, reflect=1, one DoF pass);
-(e) samples > 1 in parity mode is not ported and raises.
+(e) samples > 1 in parity mode: the 8x4 parity frame of config #5's
+    scene (reflect 6, samples 4, one DoF pass) equals the mean of its
+    own per-sample traces, packed and blurred, bit for bit (the scalar
+    spec stops at reflect 2: tests/test_torch_parity_samples.py holds
+    the parity chains to it there).
 
 (b)-(d) take the fast-mode limits of tests/test_torch_tracer.py and
 tests/test_torch_frame.py, set there from the measured gap between
@@ -56,7 +60,8 @@ from pwnfps_tpu.render.frame import render_accumulated as jax_accumulated
 from pwnfps_tpu_torch.ops import blur, tracer
 from pwnfps_tpu_torch.ops.tracer_core import col_ftoint
 from pwnfps_tpu_torch.ops.vec import V3
-from pwnfps_tpu_torch.render.frame import render_accumulated
+from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
+                                           render_accumulated)
 from pwnfps_tpu_torch.scene import flagship_scene, maze_scene, ptrace_scene
 
 from .test_torch_paged import _portal_rays
@@ -94,19 +99,22 @@ def _bits_equal(a, b):
 
 # ---- (a) the samples path equals the port's own per-sample calls -----------
 
-def _per_sample(tw, cfg, ifrom, iray, seeds, page0=0):
+def _per_sample(tw, cfg, ifrom, iray, seeds, page0=0, sec=SEC):
     """cfg.samples calls at samples=1, seeds + k*0x9E3779B9, summed in
-    order and scaled by f32(1/samples): (C4, dist of sample 0)."""
+    order and scaled by f32(1/samples): (C4, dist of sample 0, C4 of
+    sample 0)."""
     one = dataclasses.replace(cfg, samples=1)
     u = seeds.numpy().view(np.uint32)
-    acc = dist0 = None
     for k in range(cfg.samples):
         sk = u + np.uint32((k * 0x9E3779B9) & 0xFFFFFFFF)
         col, dist = tracer.trace_wave(tw, one, ifrom, iray,
                                       torch.from_numpy(sk.view(np.int32)),
-                                      SEC, page0=page0)
-        acc, dist0 = (col, dist) if k == 0 else (acc + col, dist0)
-    return acc * float(np.float32(1.0 / cfg.samples)), dist0
+                                      sec, page0=page0)
+        if k == 0:
+            acc, dist0, col0 = col, dist, col
+        else:
+            acc = acc + col
+    return acc * float(np.float32(1.0 / cfg.samples)), dist0, col0
 
 
 @pytest.mark.parametrize("world", ["demo", "maze"])
@@ -121,7 +129,8 @@ def test_samples_equal_per_sample_calls(world):
     page0 = sc.cfg.cam_page
     col, dist = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, iray, seeds, SEC,
                                   page0=page0)
-    want, want_d = _per_sample(sc.tworld, sc.cfg, ifrom, iray, seeds, page0)
+    want, want_d, _ = _per_sample(sc.tworld, sc.cfg, ifrom, iray, seeds,
+                                  page0)
     for a, b in zip(col, want):
         assert _bits_equal(a, b)
     assert _bits_equal(dist, want_d)
@@ -133,6 +142,31 @@ def test_samples_equal_per_sample_calls(world):
                                  dataclasses.replace(sc.cfg, samples=1),
                                  ifrom, iray, seeds, SEC, page0=page0)
     assert not torch.equal(torch.stack(list(col)), torch.stack(list(first)))
+
+
+def accumulated_equals_mean(sc, k, samples):
+    """Frame k of sc through render_accumulated equals the mean of its
+    per-sample traces, packed and blurred as the frame is, bit for bit;
+    returns the frame."""
+    w, h = sc.cfg.width, sc.cfg.height
+    origin, rayb, rdx, rdy, sec = args = sc.frame_args(k)
+    fb, zb = render_accumulated(sc.tworld, sc.meta, sc.cfg, *args,
+                                samples=samples)
+    rays = gen_rays(torch.from_numpy(rayb), torch.from_numpy(rdx),
+                    torch.from_numpy(rdy), w, h, sc.cfg.parity)
+    ifrom = V3(*(torch.full((w * h,), float(origin[i])) for i in range(3)))
+    col, dist, col0 = _per_sample(
+        sc.tworld, dataclasses.replace(sc.cfg, samples=samples), ifrom,
+        rays, pixel_seeds(w, h, "cpu"), sec=sec)
+    want_z = dist.reshape(h, w)
+    want = col_ftoint(col).reshape(h, w)
+    if sc.cfg.postproc_blur:
+        want = blur.dof_blur(want, want_z, sc.cfg.postproc_blur)
+    assert torch.equal(fb, want)
+    assert _bits_equal(zb, want_z)
+    # the chains differ, so the mean is not sample 0's colour
+    assert not torch.equal(col_ftoint(col), col_ftoint(col0))
+    return fb
 
 
 # ---- (b)-(d) against the JAX package ---------------------------------------
@@ -263,8 +297,14 @@ def test_accumulated_frame_matches_jax_relaxed(traced):
 # ---- (e) -------------------------------------------------------------------
 
 def test_samples_in_parity_mode_raise():
-    sc = ptrace_scene(8, 4, "cpu")
-    sc.cfg = dataclasses.replace(sc.cfg, parity=True)
-    with pytest.raises(NotImplementedError, match="samples"):
-        render_accumulated(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(0),
-                           samples=2)
+    """Samples in parity mode render: the 8x4 parity frame of config
+    #5's scene equals the mean of its per-sample traces.  (The name is
+    the refusal this test asserted before the parity samples path was
+    ported.)"""
+    sc = ptrace_scene(8, 4, "cpu", parity=True)
+    assert (sc.cfg.reflect, sc.cfg.samples, sc.cfg.postproc_blur) == (6, 4, 1)
+    before = (tracer.LAUNCHES_PARITY, tracer.LAUNCHES_PARITY_SAMPLES)
+    fb = accumulated_equals_mean(sc, 1, sc.cfg.samples)
+    assert (tracer.LAUNCHES_PARITY,
+            tracer.LAUNCHES_PARITY_SAMPLES) == before   # CPU: plain
+    assert fb.shape == (4, 8) and torch.unique(fb).numel() > 4

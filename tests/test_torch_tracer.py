@@ -129,8 +129,7 @@ def test_unported_config_raises():
     sc = flagship_scene(8, 2, "cpu", n_spheres=3)
     rays = V3(*(torch.ones(4) for _ in range(3)))
     seeds = torch.zeros(4, dtype=torch.int32)
-    for kw in (dict(parity=True, samples=2),
-               dict(fused=True), dict(parity=True, fused=True),
+    for kw in (dict(fused=True), dict(parity=True, fused=True),
                dict(profile=True), dict(probe="fire1"), dict(water=False)):
         cfg = dataclasses.replace(sc.cfg, **kw)
         with pytest.raises(NotImplementedError):
