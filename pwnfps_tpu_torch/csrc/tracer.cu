@@ -1,5 +1,5 @@
-// Multi-bounce wavefront tracer for Hopper (sm_90a): fast mode on one
-// page or a paged world atlas, parity mode on one page.
+// Multi-bounce wavefront tracer for Hopper (sm_90a): fast mode and parity
+// mode, each on one page or a paged world atlas.
 //
 // Replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel (behind
 // trace_wave_pallas): for each ray, the whole trace_wave_env of
@@ -37,7 +37,23 @@
 //     ops/tracer_ref.ScalarTracer(pinned=True).  With samples > 1 the
 //     parity march runs once and each sample's parity chain runs from
 //     it, as in fast mode: a fourth instance (P = S = true), whose SSE
-//     tables stay in shared memory across the chains.
+//     tables stay in shared memory across the chains.  Both parity
+//     instances take paged worlds as the fast ones do (the paged branch of
+//     _sphere_pass_pallas, :502-504): the bucket scan reads the ray's
+//     page of the [n_pages * 4096 * k_bucket] bucket table, and only
+//     sphere_page's cells have a count;
+//   * fused (entry pwnfps_trace with fused = 1; run_fused of
+//     tracer_core.py:1592, which the TPU kernel runs inside _kernel when
+//     RenderConfig.fused is set, tracer_pallas.py:650): fast mode, one
+//     sample, one page or paged.  A thread marches, shades and restarts
+//     its own ray in one loop: a segment that terminates is shaded at the
+//     start of the next iteration and, if it bounces, restarted on its
+//     bounce ray and stepped in that iteration; the unwind blend becomes a
+//     forward affine col = acc_a + acc_b * child.  The loop ends when the
+//     colour is final, or at the cap maxsteps * n_waves + 8 * n_waves
+//     rounded up to step_chunk, after which a death not yet processed is
+//     shaded once more.  A fifth instance (F = true) of the same march,
+//     step body and shading.
 //
 // What bounds it on the H100: divergence and latency, not bandwidth.  A
 // ray's work is a data-dependent loop (a few steps for a wall hit, up to
@@ -125,7 +141,7 @@ struct World {
     int sphere_page;         // the page every sphere lives on
     bool skip;
     // parity mode only
-    const int32_t* buckets;  // [4096 * k_bucket] sphere ids, -1 pad
+    const int32_t* buckets;  // [n_pages * 4096 * k_bucket] ids, -1 pad
     int k_bucket;
     const uint32_t* rsq_tab; // shared memory
     const uint32_t* rcp_tab; // shared memory
@@ -452,11 +468,13 @@ __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
 // Parity mode: the reference's per-cell sphere tests (trace.h:252-296,
 // tracer_core.sphere_pass).  An active lane in a bucketed cell tests the
 // cell's slots k = 0 .. k_bucket-1 in order (valid: k < the cell's count
-// and a sphere in the slot); the last strictly closer hit wins.
+// and a sphere in the slot); the last strictly closer hit wins.  The
+// cell's slots sit at page * 4096 + cz * 64 + cx of the bucket table.
 __device__ void sphere_pass(const World& w, Seg& s) {
     if (s.cx < 0 || s.cx >= 64 || s.cz < 0 || s.cz >= 64) return;
     const int nsph = min((s.ent >> 15) & 0x1F, w.k_bucket);
-    const int32_t* slots = w.buckets + (s.cz * 64 + s.cx) * w.k_bucket;
+    const int32_t* slots = w.buckets
+        + (s.page * 4096 + s.cz * 64 + s.cx) * w.k_bucket;
     bool nw = false;
     float w_sd = 0.0f;
     int w_idx = 0;
@@ -966,6 +984,7 @@ struct Params {
     int n, n_spheres, k_bucket, maxsteps, reflect, skip;
     int n_pages, sphere_page, page0;
     int samples;              // bounce chains a ray
+    int fused, step_chunk;    // the fused wave loop, and its cap's chunk
     float sec, slack, inv_mod;
     float inv;                // f32(1 / samples), rounded on the host
     int32_t* out_fb;
@@ -982,16 +1001,26 @@ constexpr size_t smem_bytes() {
         + (P ? sizeof(uint32_t) * (RSQ_N + RCP_N) : 0);
 }
 
-// March one segment from origin (fx, fy, fz) along (rx, ry, rz), starting
-// on `page`, until it terminates or the step budget runs out
+// Start a segment from origin (fx, fy, fz) along (rx, ry, rz) on `page`:
+// its marching state and, in fast mode, its line's sphere candidates
+// (tracer_core.run_segment's prologue)
+template <bool P>
+__device__ __forceinline__ void start(const World& w, const Params& a,
+                                      Seg& s, float fx, float fy, float fz,
+                                      float rx, float ry, float rz,
+                                      int page) {
+    init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true, page);
+    if (!P && a.n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
+}
+
+// March one segment until it terminates or the step budget runs out
 // (tracer_core.run_segment)
 template <bool P>
 __device__ __forceinline__ void march(const World& w, const Params& a,
                                       Seg& s, float fx, float fy, float fz,
                                       float rx, float ry, float rz,
                                       int page) {
-    init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true, page);
-    if (!P && a.n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
+    start<P>(w, a, s, fx, fy, fz, rx, ry, rz, page);
     for (int step = 0; step < a.maxsteps && s.active; ++step)
         segment_body<P>(w, s);
     if (s.active) s.tmeta = T_SKY;
@@ -1042,13 +1071,92 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
     }
 }
 
+// The fused wave loop (tracer_core.run_fused, _process_deaths), fast mode,
+// one sample, for the ray from (fx, fy, fz) along (rx, ry, rz): col gets
+// the final colour (0 if the cap cut it short), dist0 the primary
+// segment's distance.
+struct Fused {
+    int wave = 0;                       // segment index (0: the primary)
+    uint32_t seed;
+    float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    float acc_a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc_b = 1.0f;
+    float col[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float dist0 = 0.0f;
+    bool done = false;
+};
+
+// Shade the segment that s finished; finalize the colour or compose this
+// wave's blend into the affine and restart s on the bounce ray
+__device__ __forceinline__ void fused_death(const World& w, const Params& a,
+                                            Seg& s, Fused& f) {
+    float fx, fy, fz, rx, ry, rz;
+    const Shade o = shade<false>(w, s, f.icol, f.seed, a.sec,
+                                 f.wave < a.reflect, a.inv_mod, fx, fy, fz,
+                                 rx, ry, rz);
+    if (f.wave == 0) f.dist0 = s.cdist;
+    const float base[4] = {o.b, o.g, o.r, o.a};
+    if (!o.bounce) {
+        for (int c = 0; c < 4; ++c) f.col[c] = f.acc_a[c] + base[c] * f.acc_b;
+        f.done = true;
+        return;
+    }
+    // refl * child + (1 - refl) * base, then f * blended + (1 - f) only
+    // where fog != 0
+    float ab[4], bb = o.refl;
+    for (int c = 0; c < 4; ++c) ab[c] = base[c] * (1.0f - o.refl);
+    if (o.fog != 0.0f) {
+        const float fogf = expf(-0.6f * o.fog);
+        for (int c = 0; c < 4; ++c) ab[c] = ab[c] * fogf + (1.0f - fogf);
+        bb = bb * fogf;
+    }
+    for (int c = 0; c < 4; ++c) {
+        f.acc_a[c] = f.acc_a[c] + ab[c] * f.acc_b;
+        f.icol[c] = base[c];
+    }
+    f.acc_b = f.acc_b * bb;
+    start<false>(w, a, s, fx, fy, fz, rx, ry, rz, s.page);
+    ++f.wave;
+}
+
+__device__ __forceinline__ void fused(const World& w, const Params& a,
+                                      float fx, float fy, float fz,
+                                      float rx, float ry, float rz,
+                                      Fused& f) {
+    Seg s;
+    start<false>(w, a, s, fx, fy, fz, rx, ry, rz, a.page0);
+    const int n_waves = a.reflect + 1;
+    const int chunk = max(a.step_chunk, 1);
+    const int cap = a.maxsteps * n_waves + 8 * n_waves;
+    const int n_it = (cap + chunk - 1) / chunk * chunk;
+    int segsteps = 0;
+    bool dead = false;
+    for (int it = 0; it < n_it; ++it) {
+        if (dead) {
+            fused_death(w, a, s, f);
+            dead = false;
+            segsteps = 0;
+        }
+        if (f.done) break;
+        segment_body<false>(w, s);
+        ++segsteps;
+        // the per-segment step budget -> sky (trace.h:247,678)
+        if (s.active && segsteps >= a.maxsteps) {
+            s.tmeta = T_SKY;
+            s.active = false;
+        }
+        dead = !s.active;
+    }
+    if (dead) fused_death(w, a, s, f);   // the drain: never stepped
+}
+
 // S: a.samples > 1.  The primary wave consumes no RNG, so it is marched
 // once and kept (the fields shade reads stay in registers); each sample k
 // runs its chain from it with seed + k*WEYL, the chains' colours are
 // summed in sample order ((c0 + c1) + c2) + ..., and the sum is scaled by
 // the host's f32(1 / samples) before the pack (tracer_core.py:1804-1817).
-// S = false is the one-chain trace.
-template <bool P, bool S>
+// S = false is the one-chain trace.  F: the fused wave loop (P = S =
+// false).
+template <bool P, bool S, bool F>
 __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
     // shared memory: the sphere records, then (parity) the SSE tables
     extern __shared__ uint32_t smem[];
@@ -1092,18 +1200,27 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
     }
 
     const uint32_t seed = (uint32_t)a.seeds[i];
-    Seg s;
-    march<P>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i],
-             a.page0);
-    const float dist0 = s.cdist;
-    float col[4];
-    for (int k = 0; k < (S ? a.samples : 1); ++k) {
-        float c[4];
-        chain<P>(w, a, s, seed + (uint32_t)k * WEYL, c);
-        for (int j = 0; j < 4; ++j) col[j] = k == 0 ? c[j] : col[j] + c[j];
-    }
-    if (S) {
-        for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
+    float col[4], dist0;
+    if constexpr (F) {
+        Fused f;
+        f.seed = seed;
+        fused(w, a, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], f);
+        for (int j = 0; j < 4; ++j) col[j] = f.col[j];
+        dist0 = f.dist0;
+    } else {
+        Seg s;
+        march<P>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i],
+                 a.dz[i], a.page0);
+        dist0 = s.cdist;
+        for (int k = 0; k < (S ? a.samples : 1); ++k) {
+            float c[4];
+            chain<P>(w, a, s, seed + (uint32_t)k * WEYL, c);
+            for (int j = 0; j < 4; ++j)
+                col[j] = k == 0 ? c[j] : col[j] + c[j];
+        }
+        if (S) {
+            for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
+        }
     }
     a.out_dist[i] = dist0;
     a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
@@ -1111,17 +1228,17 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
                             | pack_chan(col[3], 24));
 }
 
-template <bool P, bool S>
+template <bool P, bool S, bool F = false>
 int launch_instance(const Params& a, void* stream) {
     constexpr size_t smem = smem_bytes<P>();
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            trace_kernel<P, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            trace_kernel<P, S, F>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
     const int grid = (a.n + BLOCK - 1) / BLOCK;
-    trace_kernel<P, S><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
+    trace_kernel<P, S, F><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -1130,8 +1247,8 @@ int launch(const Params& a, void* stream) {
     if (a.n_spheres < 0 || a.n_spheres > NSPH_MAX || a.reflect < 0
             || a.reflect + 1 > MAX_WAVES || a.n_pages < 1 || a.n_pages > 16
             || a.sphere_page < 0 || a.sphere_page >= a.n_pages
-            || a.page0 < 0 || a.page0 >= a.n_pages || (P && a.n_pages != 1)
-            || a.samples < 1
+            || a.page0 < 0 || a.page0 >= a.n_pages || a.samples < 1
+            || (a.fused && (P || a.samples != 1))
             || (P && (a.k_bucket < 0 || (a.k_bucket > 0
                                          && a.n_spheres == 0))))
         return (int)cudaErrorInvalidValue;
@@ -1139,6 +1256,7 @@ int launch(const Params& a, void* stream) {
     if (P)
         return a.samples > 1 ? launch_instance<true, true>(a, stream)
                              : launch_instance<true, false>(a, stream);
+    if (a.fused) return launch_instance<false, false, true>(a, stream);
     return a.samples > 1 ? launch_instance<false, true>(a, stream)
                          : launch_instance<false, false>(a, stream);
 }
@@ -1149,9 +1267,10 @@ int launch(const Params& a, void* stream) {
 // (dx, dy, dz) f32 [n], seeds i32 [n] (uint32 bits); the world tables of
 // ops/world.py:world_to_torch (ent and word [n_pages * 4096]); every ray
 // starts on page page0; samples bounce chains a ray, inv = f32(1 /
-// samples).  Output: out_fb i32 [n] packed BGRA of the chains' mean and
-// out_dist f32 [n] primary-wave distance.  Launches on `stream`; returns
-// cudaGetLastError().
+// samples); fused = 1 runs the fused wave loop (samples must be 1), its
+// cap checked every step_chunk iterations.  Output: out_fb i32 [n] packed
+// BGRA of the chains' mean and out_dist f32 [n] primary-wave distance.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* dx, const void* dy, const void* dz,
                             const void* seeds, const void* ent,
@@ -1159,9 +1278,10 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* bound, int n, int n_spheres,
                             int maxsteps, int reflect, int skip,
                             int n_pages, int sphere_page, int page0,
-                            int samples, float sec, float slack,
-                            float inv_mod, float inv, void* out_fb,
-                            void* out_dist, void* stream) {
+                            int samples, int fused, int step_chunk,
+                            float sec, float slack, float inv_mod,
+                            float inv, void* out_fb, void* out_dist,
+                            void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -1183,6 +1303,8 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
     a.sphere_page = sphere_page;
     a.page0 = page0;
     a.samples = samples;
+    a.fused = fused;
+    a.step_chunk = step_chunk;
     a.sec = sec;
     a.slack = slack;
     a.inv_mod = inv_mod;
@@ -1193,16 +1315,17 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
 }
 
 // Trace n rays in parity mode.  As pwnfps_trace, less the bound, the
-// skip and the pages, plus the bucket table [4096 * k_bucket] i32 and the
-// SSE rsqrt [8192] and rcp [4096] tables (uint32 bits).
+// skip and the fused loop, plus the bucket table [n_pages * 4096 *
+// k_bucket] i32 and the SSE rsqrt [8192] and rcp [4096] tables (uint32
+// bits).
 extern "C" int pwnfps_trace_parity(
         const void* ox, const void* oy, const void* oz, const void* dx,
         const void* dy, const void* dz, const void* seeds, const void* ent,
         const void* word, const void* sph, const void* buckets,
         const void* rsq_tab, const void* rcp_tab, int n, int n_spheres,
-        int k_bucket, int maxsteps, int reflect, int samples, float sec,
-        float inv_mod, float inv, void* out_fb, void* out_dist,
-        void* stream) {
+        int k_bucket, int maxsteps, int reflect, int n_pages,
+        int sphere_page, int page0, int samples, float sec, float inv_mod,
+        float inv, void* out_fb, void* out_dist, void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -1222,7 +1345,9 @@ extern "C" int pwnfps_trace_parity(
     a.k_bucket = k_bucket;
     a.maxsteps = maxsteps;
     a.reflect = reflect;
-    a.n_pages = 1;
+    a.n_pages = n_pages;
+    a.sphere_page = sphere_page;
+    a.page0 = page0;
     a.samples = samples;
     a.inv = inv;
     a.sec = sec;

@@ -6,11 +6,12 @@ any device.  `trace_wave` takes it for CPU tensors and launches the
 CUDA kernel of csrc/tracer.cu for CUDA tensors: entry `pwnfps_trace` in
 fast mode, `pwnfps_trace_parity` when `cfg.parity` is set.  The kernel
 replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel: one
-page in both modes, and paged worlds in fast mode, where every ray
-starts on the scalar page `page0` (the TPU kernel's `page0_ref`,
-tracer_pallas.py:648).  In either mode `cfg.samples > 1` traces the
-primary wave once and `samples` bounce chains from it, and writes their
-mean (tracer_core.trace_wave_env).
+page or a paged world in both modes, where every ray starts on the
+scalar page `page0` (the TPU kernel's `page0_ref`, tracer_pallas.py:648).
+In either mode `cfg.samples > 1` traces the primary wave once and
+`samples` bounce chains from it, and writes their mean
+(tracer_core.trace_wave_env).  `cfg.fused` in fast mode runs the fused
+wave loop (tracer_core.run_fused), one sample; parity mode ignores it.
 """
 
 from __future__ import annotations
@@ -31,17 +32,22 @@ from .world import SPH_COLS, TorchWorld
 # count), each launch in one counter: LAUNCHES fast mode on a one-page
 # world, LAUNCHES_PAGED fast mode on a paged world (the same entry),
 # LAUNCHES_SAMPLES fast mode with cfg.samples > 1 (the same entry, on
-# either kind of world), LAUNCHES_PARITY parity mode with one sample,
-# LAUNCHES_PARITY_SAMPLES parity mode with cfg.samples > 1 (the same entry)
+# either kind of world), LAUNCHES_FUSED the fused wave loop (fast mode,
+# either kind of world), LAUNCHES_PARITY parity mode on a one-page world
+# with one sample, LAUNCHES_PARITY_SAMPLES parity mode on a one-page world
+# with cfg.samples > 1, LAUNCHES_PARITY_PAGED parity mode on a paged world
+# with any number of samples (the same entry)
 LAUNCHES = 0
 LAUNCHES_PAGED = 0
 LAUNCHES_SAMPLES = 0
+LAUNCHES_FUSED = 0
 LAUNCHES_PARITY = 0
 LAUNCHES_PARITY_SAMPLES = 0
+LAUNCHES_PARITY_PAGED = 0
 # C entry points of csrc/tracer.cu
-_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
          + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3,
-         "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+         "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
          + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3}
 
 
@@ -89,8 +95,8 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
             seed: torch.Tensor, sec, page0: int):
-    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_PARITY, \
-        LAUNCHES_PARITY_SAMPLES
+    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
+        LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED
     n = ifrom.x.shape[0]
     dev = ifrom.x.device
     # the contiguous copies must outlive the launch: keep them here
@@ -101,6 +107,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     lib = _build.load("tracer", _SIGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     inv = float(np.float32(1.0 / cfg.samples))
+    fused = cfg.fused and not cfg.parity
     with torch.cuda.device(dev):
         if cfg.parity:
             err = lib.pwnfps_trace_parity(
@@ -108,7 +115,8 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 wt.sph.data_ptr(), wt.buckets.data_ptr(),
                 wt.rsqrt_tab.data_ptr(), wt.rcp_tab.data_ptr(),
                 n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
-                cfg.samples, float(np.float32(sec)), lcg.INV_MOD_F, inv,
+                wt.n_pages, wt.sphere_page, page0, cfg.samples,
+                float(np.float32(sec)), lcg.INV_MOD_F, inv,
                 fb.data_ptr(), dist.data_ptr(), stream)
         else:
             err = lib.pwnfps_trace(
@@ -116,15 +124,20 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 wt.sph.data_ptr(), wt.bound.data_ptr(),
                 n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
                 int(cfg.space_skip and wt.skip_ok), wt.n_pages,
-                wt.sphere_page, page0, cfg.samples, float(np.float32(sec)),
+                wt.sphere_page, page0, cfg.samples, int(fused),
+                max(1, cfg.step_chunk), float(np.float32(sec)),
                 float(np.float32(wt.slack)), lcg.INV_MOD_F, inv,
                 fb.data_ptr(), dist.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
-    if cfg.parity and cfg.samples > 1:
+    if cfg.parity and wt.n_pages > 1:
+        LAUNCHES_PARITY_PAGED += 1
+    elif cfg.parity and cfg.samples > 1:
         LAUNCHES_PARITY_SAMPLES += 1
     elif cfg.parity:
         LAUNCHES_PARITY += 1
+    elif fused:
+        LAUNCHES_FUSED += 1
     elif cfg.samples > 1:
         LAUNCHES_SAMPLES += 1
     elif wt.n_pages > 1:
@@ -140,7 +153,7 @@ def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     averaged over cfg.samples bounce chains.  Returns (C4 of [n], dist
     [n]), or (fb int32 [n] BGRA bits, dist [n]) with pack=True.  The
     kernel writes packed BGRA only, so CUDA tensors need pack=True."""
-    check_config(cfg, wt.n_pages)
+    check_config(cfg)
     if cfg.samples < 1:
         raise ValueError(f"samples={cfg.samples}: need at least one")
     _check_inputs(wt, ifrom, iray, seed, page0)

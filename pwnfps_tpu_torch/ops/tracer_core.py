@@ -12,7 +12,11 @@ each cell fetch reads page*4096 + its clamped local index, a portal
 moves the lane to the target page its word holds (bits 26-29), spheres
 exist only on `sphere_page`, and each bounce wave starts on the page
 where the wave before it ended.  A one-page world is the degenerate case
-(every page 0).  Paged worlds run in fast mode only.
+(every page 0).  Paged worlds run in both modes: parity mode's bucket
+scan reads the lane's page of the bucket table.
+
+`run_fused` is the fused wave loop (`cfg.fused`, fast mode): one DDA
+loop in which each lane shades and restarts its own bounces.
 
 Two modes, as in the JAX package, selected by `cfg.parity`:
 
@@ -290,7 +294,9 @@ def sphere_pass(wt: TorchWorld, s: SegState, math: Math,
     k_bucket-1 in order; a slot is valid when k < the cell's count and
     it holds a sphere, and the last strictly closer hit wins (the
     reference's insertion-order tie-break).  The winner's hit point and
-    diffuse factor are shaded once, from its exact inputs.
+    diffuse factor are shaded once, from its exact inputs.  A paged
+    world's buckets are [n_pages*4096, k_bucket], read at the lane's
+    page*4096 + cz*64 + cx; only sphere_page's cells have a count.
 
     The per-(lane, slot) arithmetic runs batched over [lanes, slots]
     (elementwise, so the same bits as slot by slot); only the ordered
@@ -301,9 +307,9 @@ def sphere_pass(wt: TorchWorld, s: SegState, math: Math,
     if kb == 0 or not bool(scan.any()):
         return s
     lanes = torch.nonzero(scan).flatten()
-    cidx = (s.cz[lanes] * 64 + s.cx[lanes]).long()
+    cidx = (s.page[lanes] * 4096 + s.cz[lanes] * 64 + s.cx[lanes]).long()
     nsph = ((s.ent[lanes] >> 15) & 0x1F)[:, None]
-    si = wt.buckets.view(4096, kb)[cidx]                     # [m, kb]
+    si = wt.buckets.view(wt.n_pages * 4096, kb)[cidx]        # [m, kb]
     slot = torch.arange(kb, dtype=I32, device=si.device)[None, :]
     valid = (slot < nsph) & (si >= 0)
     si = si.clamp(0, wt.n_spheres - 1)
@@ -851,20 +857,188 @@ def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
     return base, refl, bounce, mpos, V3(mx, my, mz), seed
 
 
-def check_config(cfg: RenderConfig, n_pages: int = 1) -> None:
-    """Raise on every RenderConfig feature the port does not run, on a
-    world of n_pages pages.
+# ---- the fused wave loop (tracer_core.run_fused) ---------------------------
+
+class FusedAcc(NamedTuple):
+    """Per-lane bounce bookkeeping of the fused wave loop
+    (tracer_core.FusedAcc)."""
+
+    wave: torch.Tensor        # i32 segment index (0: the primary)
+    segsteps: torch.Tensor    # i32 DDA steps taken in the current segment
+    done: torch.Tensor        # bool: colour final
+    seed: torch.Tensor        # int64 uint32 LCG state
+    icol: C4                  # parent base colour fed to the child wave
+    acc_a: C4                 # composed affine: col = acc_a + acc_b * x
+    acc_b: torch.Tensor
+    col: C4                   # final colour
+    dist0: torch.Tensor       # primary-wave distance (zbuf)
+
+
+def _process_deaths(wt: TorchWorld, cfg: RenderConfig, math: Math,
+                    s: SegState, acc: FusedAcc, sec: float,
+                    hoisted: bool) -> tuple[SegState, FusedAcc]:
+    """Shade lanes that died and are not processed yet, then finalize
+    each or restart it on its bounce ray (tracer_core._process_deaths).
+    Every lane given is such a death: the caller passes those lanes
+    only, where the JAX function masks a whole tile, so each lane gets
+    the same bits.  The unwind blend is carried forward as an affine,
+    col = acc_a + acc_b * child."""
+    out = seg_out_view(wt, s, math)
+    base, refl, bounce, mpos, mray, seed2 = shade_and_bounce(
+        out, acc.icol, acc.seed, sec, acc.wave < cfg.reflect, math)
+    fin = ~bounce
+    col = (acc.acc_a + base * acc.acc_b).where(fin, acc.col)
+    dist0 = torch.where(acc.wave == 0, s.cdist, acc.dist0)
+    # compose this wave's blend (refl*child + (1-refl)*base, then the fog
+    # wrap f*blended + (1-f) only where fog != 0) into the affine
+    a_b, b_b = base * (1.0 - refl), refl
+    fogf = math.exp(-0.6 * s.fog)
+    has_fog = s.fog != 0.0
+    a_b = (a_b * fogf + (1.0 - fogf)).where(has_fog, a_b)
+    b_b = torch.where(has_fog, b_b * fogf, b_b)
+    new_a = (acc.acc_a + a_b * acc.acc_b).where(bounce, acc.acc_a)
+    new_b = torch.where(bounce, acc.acc_b * b_b, acc.acc_b)
+    # restart on the bounce ray, on the page the segment ended on (the
+    # shared _init_march: the bits of the unfused wave's init)
+    (ray, cx, cz, gx, gy, gz, iavel, wdist, ent) = _init_march(
+        wt, mpos, mray, math, s.page)
+    z1 = torch.zeros_like(s.cdist)
+    W_ = torch.where
+    s = s._replace(
+        pos=mpos.where(bounce, s.pos), ray=ray.where(bounce, s.ray),
+        iavel=iavel.where(bounce, s.iavel),
+        wdist=wdist.where(bounce, s.wdist), ent=W_(bounce, ent, s.ent),
+        gx=W_(bounce, gx, s.gx), gy=W_(bounce, gy, s.gy),
+        gz=W_(bounce, gz, s.gz), cx=W_(bounce, cx, s.cx),
+        cz=W_(bounce, cz, s.cz), cdist=W_(bounce, z1, s.cdist),
+        fog=W_(bounce, z1, s.fog), ldir=W_(bounce, FYN, s.ldir).to(I32),
+        active=bounce.clone(), aux_dist=W_(bounce, -1.0, s.aux_dist),
+        aux_t0=W_(bounce, -1.0, s.aux_t0),
+        aux_apos=V3(z1, z1, z1).where(bounce, s.aux_apos),
+        aux_idx=W_(bounce, 0, s.aux_idx).to(I32),
+        aux_diff=W_(bounce, z1, s.aux_diff), tmeta=torch.zeros_like(s.tmeta))
+    if hoisted:
+        # the new line's candidates now: the lane steps this iteration
+        aux = sphere_all(wt, s, bounce, merge=False, math=math)
+        s = _apply_aux(s, aux[:5] + (W_(bounce, aux[5], s.sph_dirty),))
+    acc = FusedAcc(
+        wave=W_(bounce, acc.wave + 1, acc.wave).to(I32),
+        segsteps=W_(bounce, 0, acc.segsteps).to(I32), done=fin,
+        seed=seed2, icol=base.where(bounce, acc.icol), acc_a=new_a,
+        acc_b=new_b, col=col, dist0=dist0)
+    return s, acc
+
+
+def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
+              iray: V3, seed, sec: float, page,
+              counts: dict | None = None):
+    """The fused multi-bounce trace, fast mode (tracer_core.run_fused):
+    one DDA loop in which a lane that terminates is shaded at the start
+    of the next iteration and, if it bounces, restarted on its bounce ray
+    and stepped in that same iteration - the JAX package's "ray
+    compaction between bounces".  A lane's segment ends at its own step
+    budget (segsteps >= maxsteps -> sky); the loop ends when every
+    lane's colour is final (the JAX loop tests that every step_chunk
+    iterations; the iterations between change nothing), or at the global
+    cap maxsteps*n_waves + 8*n_waves rounded up to the chunk, after
+    which deaths not yet processed are drained (shaded, never stepped).
+
+    Each lane steps in every iteration it is live, so its own iteration
+    count is the loop's and the result is per-lane: dist is bit-equal to
+    the unfused trace; colours agree to ~1 ulp, the forward affine
+    associating the reflectance products differently.  The loop works on
+    the lanes whose colour is not final, compacting them as they finish.
+    counts: as run_segment's (segments, steps).  Returns (col C4, dist).
+    """
+    hoisted = wt.n_spheres > 0
+    use_skip = cfg.space_skip and wt.skip_ok
+    one = torch.ones_like(ifrom.x)
+    zero = torch.zeros_like(one)
+    zi = torch.zeros_like(page)
+    s = init_segment(wt, ifrom, iray, one > 0.0, math, page)
+    if hoisted:
+        s = _apply_aux(s, sphere_all(wt, s, s.active, merge=False,
+                                     math=math))
+    acc = FusedAcc(wave=zi, segsteps=zi, done=zi != 0, seed=seed,
+                   icol=C4(one, one, one, one),
+                   acc_a=C4(zero, zero, zero, zero), acc_b=one,
+                   col=C4(zero, zero, zero, zero), dist0=zero)
+    col_out, dist_out = C4(zero, zero, zero, zero), zero.clone()
+    n = one.numel()
+    if counts is not None:
+        counts["segments"] += n
+    cap = cfg.maxsteps * cfg.n_waves + 8 * cfg.n_waves
+    chunk = max(1, cfg.step_chunk)
+    n_it = -(-cap // chunk) * chunk
+    idx = torch.arange(n, device=one.device)   # lanes still in the loop
+    dead = torch.zeros_like(s.active)          # deaths not processed yet
+
+    def deaths(s, acc, dead):
+        d = torch.nonzero(dead).flatten()
+        s_d, acc_d = _process_deaths(
+            wt, cfg, math, _tmap(lambda v: v[d], s),
+            _tmap(lambda v: v[d], acc), sec, hoisted)
+        if counts is not None:
+            counts["segments"] += int(s_d.active.sum())
+        return (_tmap2(lambda f, v: f.index_copy(0, d, v), s, s_d),
+                _tmap2(lambda f, v: f.index_copy(0, d, v), acc, acc_d))
+
+    def retire(keep):
+        """Write the finished lanes' colour and distance out and keep
+        the others."""
+        gone = ~keep
+        at = idx[gone]
+        put = (lambda f, v: f.index_copy(0, at, v[gone]))
+        return (_tmap2(put, col_out, acc.col), put(dist_out, acc.dist0),
+                idx[keep], _tmap(lambda v: v[keep], s),
+                _tmap(lambda v: v[keep], acc), dead[keep])
+
+    it = 0
+    while it < n_it:
+        if bool(dead.any()):
+            s, acc = deaths(s, acc, dead)
+            dead = torch.zeros_like(dead)
+        n_done = int(acc.done.sum())
+        if n_done == idx.numel():
+            break                # no lane live or waiting: the loop ends
+        if 2 * n_done >= idx.numel():
+            col_out, dist_out, idx, s, acc, dead = retire(~acc.done)
+        was = s.active
+        if counts is not None:
+            counts["steps"] += int(was.sum())
+        s = segment_body(wt, s, use_skip, hoisted, math)
+        segsteps = torch.where(was, acc.segsteps + 1, acc.segsteps)
+        # the per-segment step budget -> sky (trace.h:247,678)
+        over = s.active & (segsteps >= cfg.maxsteps)
+        s = s._replace(tmeta=torch.where(over, T_SKY, s.tmeta).to(I32),
+                       active=s.active & ~over)
+        acc = acc._replace(segsteps=segsteps.to(I32))
+        dead = ~s.active & ~acc.done
+        it += 1
+    if bool(dead.any()):         # the drain: shaded, restarts never step
+        s, acc = deaths(s, acc, dead)
+    col_out, dist_out, *_ = retire(torch.zeros_like(dead))
+    return col_out, dist_out
+
+
+def check_config(cfg: RenderConfig) -> None:
+    """Raise on every RenderConfig feature the port does not run, and
+    (ValueError) on the fused loop with samples > 1, which the JAX
+    package asserts against.  Parity mode ignores `fused`, as the JAX
+    package does.
     The Mosaic layout knobs (step_chunk, pack_carry, trace_2d,
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
-    ignored."""
+    ignored; step_chunk also sets when the fused loop checks its cap."""
     missing = [name for name, bad in (
-        ("fused=True", cfg.fused), ("profile=True", cfg.profile),
-        ("probe", bool(cfg.probe)), ("water=False", not cfg.water),
-        ("paged worlds in parity mode", cfg.parity and n_pages > 1))
+        ("profile=True", cfg.profile), ("probe", bool(cfg.probe)),
+        ("water=False", not cfg.water))
         if bad]
     if missing:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(missing))
+    if cfg.fused and not cfg.parity and cfg.samples != 1:
+        raise ValueError(f"the fused wave loop traces one sample, not "
+                         f"samples={cfg.samples}")
 
 
 # Weyl increment between the seed streams of two samples
@@ -875,18 +1049,22 @@ WEYL = 0x9E3779B9
 def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                    iray: V3, seed, sec, page,
                    counts: dict | None = None):
-    """Full multi-bounce trace (tracer_core.trace_wave_env, unfused).
+    """Full multi-bounce trace (tracer_core.trace_wave_env).
     seed: int64 uint32 states; page: i32 [n] start page of each ray.
-    Returns (col: C4, dist).
+    Returns (col: C4, dist).  cfg.fused in fast mode takes the fused
+    wave loop (run_fused); parity mode ignores it.
 
     The primary wave consumes no RNG, so it is traced once and shared:
     each of the cfg.samples chains shades it with its own seed stream
     (seed + k*WEYL in uint32) and runs waves 1..reflect.  The colour is
     the chains' mean, summed in sample order and scaled by
     f32(1/samples); dist is the primary wave's."""
-    check_config(cfg, wt.n_pages)
+    check_config(cfg)
     math = make_math(wt, cfg.parity)
     sec = float(np.float32(sec))
+    if cfg.fused and not cfg.parity:
+        return run_fused(wt, cfg, math, ifrom, iray, seed, sec, page,
+                         counts)
     one = torch.ones_like(ifrom.x)
     icol0 = C4(one, one, one, one)
     out0 = run_segment(wt, cfg, math, ifrom, iray, one > 0.0, page, counts)

@@ -18,7 +18,8 @@ The third is BASELINE config #3 (benchmarks/configs.py:175-222):
   * `maze_scene`: the 4-page, 1024-sector maze of
     `generate_sector_maze(seed=7)`, one sphere in front of the spawn
     cell, fast mode at 1280x720 with the camera starting on the spawn
-    page, yawing 0.05 rad and the clock advancing 0.016 s per frame.
+    page, yawing 0.05 rad and the clock advancing 0.016 s per frame;
+    `maze_scene(..., parity=True)` is the same frame in parity mode.
     `portal_camera` gives a camera that faces a cross-page portal
     instead: from the spawn cell, few primary rays leave the spawn page.
 
@@ -45,7 +46,10 @@ BASELINE config #2 (benchmarks/configs.py:165-171, rendered by
     chained portal pairs, no spheres, fast mode at 1280x720, reflect=2,
     one DoF pass, the camera at (1.5, 0.5, 1.5) turned 1.5707964 rad to
     face down the chain, yawing a further 0.05 rad and the clock
-    advancing 0.016 s per frame.
+    advancing 0.016 s per frame;
+  * `ring_scene`: the same chain on three identical pages of a paged
+    atlas, each portal leading to the next page, so that a paged frame
+    can be held bit for bit against the one-page chain's.
 
 `mesh_for` gives the device mesh the multi-device path
 (parallel/sharding.py) renders these scenes on: by default one card
@@ -199,7 +203,12 @@ def stress_scene(width: int = 1280, height: int = 720, device="cuda",
     lv = make_portal_chain(10)
     world, meta = W.build_world(lv, ObjectPool().prepare_render(),
                                 SseTables.load())
-    cfg = RenderConfig(width=width, height=height, parity=False, **cfg_kw)
+    return _chain_scene(world, meta, width, height, device, cfg_kw)
+
+
+def _chain_scene(world, meta, width, height, device, cfg_kw) -> Scene:
+    cfg = RenderConfig(width=width, height=height,
+                       **{"parity": False, **cfg_kw})
     cam = mat4_identity()
     cam[3, :3] = (1.5, 0.5, 1.5)
     mat4_roty(cam, 1.5707964)            # face down the chain (+x)
@@ -208,12 +217,35 @@ def stress_scene(width: int = 1280, height: int = 720, device="cuda",
                  cam=cam, yaw_step=0.05, sec_step=0.016)
 
 
+def with_dpage(words: np.ndarray, page: int) -> np.ndarray:
+    """A copy of one page's static words with every portal's target page
+    set to `page` (word bits 26-29)."""
+    out = np.array(words, np.int32)
+    out[(out & 0xF) == W.PORTAL] |= np.int32(page << 26)
+    return out
+
+
+def ring_scene(width: int = 1280, height: int = 720, device="cuda",
+               **cfg_kw) -> Scene:
+    """`stress_scene`'s portal chain on three identical pages of a paged
+    atlas, every portal of page p leading to page (p + 1) % 3, the camera
+    on page 0: each portal a ray crosses moves it to the next page, and
+    its frame is the one-page chain's bit for bit.  The same camera path
+    and cfg_kw as stress_scene."""
+    chain = W.pack_static_word(make_portal_chain(10))
+    words = np.stack([with_dpage(chain, (p + 1) % 3) for p in range(3)])
+    world, meta = W.build_world_paged(words, ObjectPool().prepare_render(),
+                                      0, SseTables.load())
+    return _chain_scene(world, meta, width, height, device, cfg_kw)
+
+
 def maze_scene(width: int = 1280, height: int = 720, device="cuda",
                seed: int = 7, **cfg_kw) -> Scene:
     """BASELINE config #3's frame (configs.py:175-222: the paged sector
     maze, one sphere of radius 0.25 and reflectance 0.5 on the spawn
     page, fast mode with the empty-space skip) at width x height on
-    `device`; cfg_kw override RenderConfig fields."""
+    `device`; cfg_kw override RenderConfig fields (parity=True: the
+    same world and camera in parity mode)."""
     words, info = generate_sector_maze(seed=seed)
     sp, sx, sz = info["spawn"]
     pool = ObjectPool()
@@ -222,8 +254,8 @@ def maze_scene(width: int = 1280, height: int = 720, device="cuda",
                         0.9, 0.6, 0.6)
     world, meta = W.build_world_paged(words, pool.prepare_render(), sp,
                                       SseTables.load())
-    cfg = RenderConfig(width=width, height=height, parity=False,
-                       cam_page=sp, **cfg_kw)
+    cfg = RenderConfig(width=width, height=height,
+                       **{"parity": False, "cam_page": sp, **cfg_kw})
     cam = mat4_identity()
     cam[3, :3] = (sx + 0.5, 0.5, sz + 0.5)
     return Scene(world=world, meta=meta,

@@ -22,7 +22,13 @@ render_frame and render_cameras with a mesh equals it without (phase
 equals the plain parity tracer and render_accumulated(parity) launches it
 once; the fast tracer equals the plain one on the portal chain (config
 #2); the probe kernels add_one and vpu_chains equal their plain
-versions."""
+versions.  Phases 15-16, small: the fused instance equals the plain
+fused loop (flagship, portal chain, paged maze) and its zbuf the unfused
+kernel's; the parity instances on the paged maze equal the plain parity
+tracer on the card (and on the host), and the parity frame of the chain
+on three pages equals the one-page chain's, kernel against kernel."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -38,7 +44,7 @@ from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
 from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene, mesh_for,
                                     multicam_scene, parity_scene,
                                     portal_camera, ptrace_scene,
-                                    stress_scene)
+                                    ring_scene, stress_scene)
 from pwnfps_tpu_torch.tools.vpu_probe import plane
 
 pytestmark = pytest.mark.cuda
@@ -182,7 +188,8 @@ def test_maze_render_frame_launches_paged_kernel_once(dev):
 def _counts():
     return (tracer.LAUNCHES, tracer.LAUNCHES_PAGED, tracer.LAUNCHES_SAMPLES,
             tracer.LAUNCHES_PARITY, tracer.LAUNCHES_PARITY_SAMPLES,
-            blur.LAUNCHES, blur.LAUNCHES_FRAMES)
+            blur.LAUNCHES, blur.LAUNCHES_FRAMES, tracer.LAUNCHES_FUSED,
+            tracer.LAUNCHES_PARITY_PAGED)
 
 
 def _delta(before):
@@ -203,7 +210,7 @@ def test_samples_kernel_matches_plain(dev, world):
     before = _counts()
     fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
                                   sec, pack=True, page0=page0)
-    assert _delta(before) == (0, 0, 1, 0, 0, 0, 0)
+    assert _delta(before) == (0, 0, 1, 0, 0, 0, 0, 0, 0)
     fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
                                         seeds, sec, pack=True, page0=page0)
     assert torch.equal(fb_k, fb_p)
@@ -216,7 +223,7 @@ def test_render_accumulated_launches_samples_kernel_once(dev):
     fb, zb = render_accumulated(sc.tworld, sc.meta, sc.cfg,
                                 *sc.frame_args(2), samples=sc.cfg.samples)
     torch.cuda.synchronize()
-    assert _delta(before) == (0, 0, 1, 0, 0, 1, 0)
+    assert _delta(before) == (0, 0, 1, 0, 0, 1, 0, 0, 0)
     assert fb.shape == (72, 128) and torch.isfinite(zb).all()
     assert torch.unique(fb).numel() > 100
 
@@ -238,7 +245,7 @@ def test_camera_batch_kernels_match_plain(dev):
     fbs, zs = fb_k.reshape(8 * 24, 32), z_k.reshape(8 * 24, 32)
     before = _counts()
     got = blur.dof_blur(fbs, zs, 2, frame_h=24)
-    assert _delta(before) == (0, 0, 0, 0, 0, 2, 2)
+    assert _delta(before) == (0, 0, 0, 0, 0, 2, 2, 0, 0)
     assert torch.equal(got, blur.dof_blur_plain(fbs, zs, 2, frame_h=24))
     single = torch.cat([blur.dof_blur(fbs[c * 24:(c + 1) * 24],
                                       zs[c * 24:(c + 1) * 24], 2)
@@ -253,7 +260,7 @@ def test_render_cameras_launches_once(dev, passes):
     before = _counts()
     fb = render_cameras(sc.tworld, sc.meta, sc.cfg, *sc.step_args(2))
     torch.cuda.synchronize()
-    assert _delta(before) == (1, 0, 0, 0, 0, passes, passes)
+    assert _delta(before) == (1, 0, 0, 0, 0, passes, passes, 0, 0)
     assert fb.shape == (8, 24, 32) and fb.device.type == "cuda"
     assert all(torch.unique(fb[c]).numel() > 20 for c in range(8))
 
@@ -318,7 +325,7 @@ def test_sharded_frame_equals_render_frame(dev, h):
                                   mesh_for(2, 4, dev))
     torch.cuda.synchronize()
     assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
-        (8, 0, 0, 0, 0, 0, 0), 8)
+        (8, 0, 0, 0, 0, 0, 0, 0, 0), 8)
     fb1, zb1 = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
     assert torch.equal(fb, fb1)
     assert torch.equal(zb.view(torch.int32), zb1.view(torch.int32))
@@ -331,7 +338,7 @@ def test_meshed_cameras_equal_one_device(dev):
                         mesh_for(2, 4, dev))
     torch.cuda.synchronize()
     assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
-        (8, 0, 0, 0, 0, 0, 0), 8)
+        (8, 0, 0, 0, 0, 0, 0, 0, 0), 8)
     assert torch.equal(fb, render_cameras(sc.tworld, sc.meta, sc.cfg,
                                           *sc.step_args(2)))
 
@@ -346,7 +353,7 @@ def test_parity_samples_kernel_matches_plain(dev, scene, samples):
     before = _counts()
     fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
                                   sec, pack=True)
-    assert _delta(before) == (0, 0, 0, 0, 1, 0, 0)
+    assert _delta(before) == (0, 0, 0, 0, 1, 0, 0, 0, 0)
     fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
                                         seeds, sec, pack=True)
     assert torch.equal(fb_k, fb_p)
@@ -355,7 +362,7 @@ def test_parity_samples_kernel_matches_plain(dev, scene, samples):
     fb, zb = render_accumulated(sc.tworld, sc.meta, sc.cfg,
                                 *sc.frame_args(1), samples=samples)
     torch.cuda.synchronize()
-    assert _delta(before) == (0, 0, 0, 0, 1, 1, 0)
+    assert _delta(before) == (0, 0, 0, 0, 1, 1, 0, 0, 0)
     assert torch.equal(zb.view(torch.int32), z_k.view(torch.int32).reshape(
         48, 64))
     assert torch.equal(fb, blur.dof_blur_plain(fb_k.reshape(48, 64), zb))
@@ -367,7 +374,7 @@ def test_stress_kernel_matches_plain(dev):
     before = _counts()
     fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
                                   sec, pack=True)
-    assert _delta(before) == (1, 0, 0, 0, 0, 0, 0)
+    assert _delta(before) == (1, 0, 0, 0, 0, 0, 0, 0, 0)
     fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
                                         seeds, sec, pack=True)
     assert torch.equal(fb_k, fb_p)
@@ -392,3 +399,84 @@ def test_probe_kernels_match_plain(dev):
             assert probes.LAUNCHES_VPU == before + 1
             want = probes.vpu_chains_plain(a, variant, S, 2, sms)
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("world", ["flagship", "stress", "maze"])
+def test_fused_kernel_matches_plain(dev, world):
+    """96x54 fused frames: the fused instance against the plain fused
+    loop bit for bit, its zbuf against the unfused kernel's."""
+    if world == "flagship":
+        sc = flagship_scene(96, 54, dev, fused=True)
+    elif world == "stress":
+        sc = stress_scene(96, 54, dev, fused=True)
+    else:
+        sc = maze_scene(96, 54, dev, fused=True)
+        sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    page0 = sc.cfg.cam_page
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0)
+    assert _delta(before) == (0, 0, 0, 0, 0, 0, 0, 1, 0)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+    unfused = dataclasses.replace(sc.cfg, fused=False)
+    _, z_u = tracer.trace_wave(sc.tworld, unfused, ifrom, rays, seeds, sec,
+                               pack=True, page0=page0)
+    assert torch.equal(z_k.view(torch.int32), z_u.view(torch.int32))
+    before = _counts()
+    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 0, 0, 0, 0, 1, 0, 1, 0)
+
+
+@pytest.mark.parametrize("view,samples", [("portal", 1), ("path", 1),
+                                          ("portal", 2)])
+def test_paged_parity_kernel_matches_plain(dev, view, samples):
+    """96x54 parity frames of the maze: the kernel against the plain
+    parity tracer on the card (and, at one sample, on the host's CPU);
+    render_frame launches it once."""
+    sc = maze_scene(96, 54, dev, parity=True, samples=samples)
+    if view == "portal":
+        sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    page0 = sc.cfg.cam_page
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0)
+    assert _delta(before) == (0, 0, 0, 0, 0, 0, 0, 0, 1)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+    if samples == 1:
+        host = maze_scene(96, 54, "cpu", parity=True)
+        host.cam = sc.cam
+        fb_h, z_h = tracer.trace_wave(host.tworld, host.cfg,
+                                      *_frame_inputs(host, 0, "cpu"),
+                                      pack=True, page0=page0)
+        assert torch.equal(fb_k.cpu(), fb_h)
+        assert torch.equal(z_k.cpu().view(torch.int32),
+                           z_h.view(torch.int32))
+    before = _counts()
+    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(0))
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 0, 0, 0, 0, 1, 0, 0, 1)
+
+
+def test_ring_atlas_parity_equals_one_page_chain(dev):
+    """The chain on three pages, each portal leading to the next page:
+    its parity frame equals the one-page chain's, kernel against
+    kernel."""
+    ring = ring_scene(160, 90, dev, parity=True)
+    one = stress_scene(160, 90, dev, parity=True)
+    before = _counts()
+    fb_r, z_r = tracer.trace_wave(ring.tworld, ring.cfg,
+                                  *_frame_inputs(ring, 0, dev), pack=True)
+    fb_o, z_o = tracer.trace_wave(one.tworld, one.cfg,
+                                  *_frame_inputs(one, 0, dev), pack=True)
+    assert _delta(before) == (0, 0, 0, 1, 0, 0, 0, 0, 1)
+    assert torch.equal(fb_r, fb_o)
+    assert torch.equal(z_r.view(torch.int32), z_o.view(torch.int32))

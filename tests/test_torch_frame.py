@@ -95,19 +95,25 @@ def test_unported_world_and_config_raise(frames):
     with pytest.raises(ValueError):
         world_to_torch(sc.world, dataclasses.replace(sc.meta, n_pages=2),
                        "cpu")
-    with pytest.raises(NotImplementedError):
-        render_frame(sc.tworld, sc.meta,
-                     dataclasses.replace(sc.cfg, parity=True, fused=True),
-                     *sc.frame_args(0))
+    # parity mode ignores `fused`, as the JAX package does: the frame is
+    # the parity frame
+    small = dataclasses.replace(sc.cfg, parity=True, width=16, height=12)
+    want = render_frame(sc.tworld, sc.meta, small, *sc.frame_args(0))
+    got = render_frame(sc.tworld, sc.meta,
+                       dataclasses.replace(small, fused=True),
+                       *sc.frame_args(0))
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
 
 
 def test_port_never_imports_jax():
     """Importing every module of the port and chip_smoke.py, building the
     scenes, rendering a tiny frame of each single-frame path (fast,
-    parity, the paged maze, the multi-sample frame in both modes, the
-    portal chain), a tiny camera batch, a frame sharded over a mesh and a
-    camera step on a mesh, and running both tools on the CPU imports
-    neither jax nor any module of the JAX package pwnfps_tpu."""
+    parity, the paged maze in both modes and fused, the multi-sample
+    frame in both modes, the portal chain), a tiny camera batch, a frame
+    sharded over a mesh and a camera step on a mesh, and running both
+    tools on the CPU imports neither jax nor any module of the JAX
+    package pwnfps_tpu."""
     code = (
         "import contextlib, io, sys, pkgutil, importlib\n"
         "import pwnfps_tpu_torch as p\n"
@@ -123,10 +129,15 @@ def test_port_never_imports_jax():
         "                                    parity_scene, ptrace_scene,\n"
         "                                    stress_scene)\n"
         "from pwnfps_tpu_torch.tools import launch_probe, vpu_probe\n"
-        "for make in (flagship_scene, parity_scene, maze_scene,\n"
-        "             stress_scene):\n"
+        "import dataclasses\n"
+        "for make in (flagship_scene, parity_scene, stress_scene,\n"
+        "             maze_scene):\n"
         "    sc = make(8, 4, 'cpu', maxsteps=64)\n"
         "    render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))\n"
+        "for kw in ({'fused': True}, {'parity': True}):\n"
+        "    render_frame(sc.tworld, sc.meta,\n"
+        "                 dataclasses.replace(sc.cfg, **kw),\n"
+        "                 *sc.frame_args(1))\n"
         "sc = ptrace_scene(8, 4, 'cpu', maxsteps=64)\n"
         "render_accumulated(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1),\n"
         "                   samples=sc.cfg.samples)\n"

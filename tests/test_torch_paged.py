@@ -305,6 +305,21 @@ def test_cam_page_must_be_a_page(scene):
 
 
 def test_paged_parity_raises(scene):
-    cfg = dataclasses.replace(scene.cfg, parity=True)
-    with pytest.raises(NotImplementedError, match="paged"):
-        render_frame(scene.tworld, scene.meta, cfg, *scene.frame_args(0))
+    """Named for the refusal it once asserted: paged worlds in parity
+    mode now render.  maze_scene(parity=True) builds the fast maze's
+    world and tables, and its frame renders on the CPU through the plain
+    parity tracer, with no launch; tests/test_torch_paged_parity.py
+    holds the bits."""
+    par = maze_scene(16, 8, "cpu", parity=True)
+    assert par.cfg.parity and par.cfg.cam_page == scene.cfg.cam_page
+    for f in W.WorldDev._fields:
+        assert np.array_equal(np.asarray(getattr(par.world, f)),
+                              np.asarray(getattr(scene.world, f))), f
+    assert par.meta == scene.meta
+    for f in ("ent", "word", "sph", "bound", "buckets"):
+        assert torch.equal(getattr(par.tworld, f), getattr(scene.tworld, f))
+    before = (tracer.LAUNCHES_PAGED, tracer.LAUNCHES_PARITY_PAGED)
+    fb, zb = render_frame(par.tworld, par.meta, par.cfg, *par.frame_args(0))
+    assert (tracer.LAUNCHES_PAGED, tracer.LAUNCHES_PARITY_PAGED) == before
+    assert fb.shape == (8, 16) and fb.dtype == torch.int32
+    assert torch.isfinite(zb).all() and torch.unique(fb).numel() > 8

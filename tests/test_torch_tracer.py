@@ -129,11 +129,25 @@ def test_unported_config_raises():
     sc = flagship_scene(8, 2, "cpu", n_spheres=3)
     rays = V3(*(torch.ones(4) for _ in range(3)))
     seeds = torch.zeros(4, dtype=torch.int32)
-    for kw in (dict(fused=True), dict(parity=True, fused=True),
-               dict(profile=True), dict(probe="fire1"), dict(water=False)):
+    for kw in (dict(profile=True), dict(probe="fire1"), dict(water=False)):
         cfg = dataclasses.replace(sc.cfg, **kw)
         with pytest.raises(NotImplementedError):
             tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
+    # the fused loop renders in fast mode, and parity mode ignores it;
+    # the fused loop traces one sample (the JAX package asserts so)
+    for kw in (dict(fused=True), dict(parity=True, fused=True),
+               dict(parity=True, fused=True, samples=2)):
+        cfg = dataclasses.replace(sc.cfg, maxsteps=64, **kw)
+        before = (tracer.LAUNCHES, tracer.LAUNCHES_FUSED,
+                  tracer.LAUNCHES_PARITY)
+        col, dist = tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
+        assert (tracer.LAUNCHES, tracer.LAUNCHES_FUSED,
+                tracer.LAUNCHES_PARITY) == before
+        assert dist.shape == (4,) and torch.isfinite(dist).all()
+        assert all(torch.isfinite(c).all() for c in col)
+    with pytest.raises(ValueError, match="fused"):
+        tracer.trace_wave(sc.tworld, dataclasses.replace(
+            sc.cfg, fused=True, samples=2), rays, rays, seeds, SEC)
     with pytest.raises(ValueError):
         tracer.trace_wave(sc.tworld, dataclasses.replace(sc.cfg, samples=0),
                           rays, rays, seeds, SEC)
@@ -144,8 +158,11 @@ def test_unported_config_raises():
         render_frame(sc.tworld, sc.meta,
                      dataclasses.replace(sc.cfg, cam_page=1),
                      *sc.frame_args(0))
+    # paged worlds trace in parity mode too (the plain tracer on the CPU)
     maze = maze_scene(8, 4, "cpu")
-    with pytest.raises(NotImplementedError):
-        tracer.trace_wave(maze.tworld,
-                          dataclasses.replace(maze.cfg, parity=True), rays,
-                          rays, seeds, SEC)
+    before = tracer.LAUNCHES_PARITY_PAGED
+    col, dist = tracer.trace_wave(
+        maze.tworld, dataclasses.replace(maze.cfg, parity=True, maxsteps=64),
+        rays, rays, seeds, SEC, page0=maze.cfg.cam_page)
+    assert tracer.LAUNCHES_PARITY_PAGED == before
+    assert torch.isfinite(dist).all()
