@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with ctypes: no PyTorch headers, so a build
-takes seconds.  The library lands in `_build/` beside this file (listed
+takes seconds.  A source may include the headers (`*.cuh`) beside it.  The library lands in `_build/` beside this file (listed
 in .gitignore), named by a hash of the source and the flags, so a
 changed source or flag rebuilds and an unchanged one is reused.  Builds
 happen at first use, from the sources in this checkout only.
@@ -52,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def _key(src: str) -> str:
+    """Hash of the source, every header under csrc/ (a source may include
+    one) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(SRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

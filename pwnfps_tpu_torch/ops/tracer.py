@@ -12,11 +12,18 @@ In either mode `cfg.samples > 1` traces the primary wave once and
 `samples` bounce chains from it, and writes their mean
 (tracer_core.trace_wave_env).  `cfg.fused` in fast mode runs the fused
 wave loop (tracer_core.run_fused), one sample; parity mode ignores it.
+
+The measurement instances (`cfg.profile`, `cfg.water=False`, `cfg.probe`;
+fast mode, one sample, unfused, one page or paged) launch entry
+`pwnfps_trace_variant` of csrc/tracer_variants.cu, one instance of the
+same template each.  `trace_wave_profile` returns the profile instance's
+per-wave terminal step counts beside the frame.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,7 +31,8 @@ import torch
 from .. import _build
 from ..core import lcg
 from ..core.config import RenderConfig
-from .tracer_core import check_config, col_ftoint, trace_wave_env
+from .tracer_core import (PROBES, check_config, col_ftoint,
+                          trace_wave_env, variant)
 from .vec import V3
 from .world import SPH_COLS, TorchWorld
 
@@ -44,22 +52,32 @@ LAUNCHES_FUSED = 0
 LAUNCHES_PARITY = 0
 LAUNCHES_PARITY_SAMPLES = 0
 LAUNCHES_PARITY_PAGED = 0
-# C entry points of csrc/tracer.cu
+# the measurement instances' template values in csrc/tracer_body.cuh
+# (VAR_*), and their launches, one counter a variant, either kind of world
+VARIANTS = {name: k for k, name in enumerate(("nowater", "profile")
+                                             + PROBES, 1)}
+LAUNCHES_VARIANT = dict.fromkeys(VARIANTS, 0)
+# C entry points of csrc/tracer.cu and csrc/tracer_variants.cu
 _SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
          + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3,
          "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
          + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3}
+_SIGS_VARIANTS = {"pwnfps_trace_variant": [ctypes.c_void_p] * 11
+                  + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                  + [ctypes.c_void_p] * 4}
 
 
 def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                      iray: V3, seed: torch.Tensor, sec, pack: bool = False,
-                     counts: dict | None = None, page0: int = 0):
+                     counts: dict | None = None, page0: int = 0,
+                     segs: list | None = None):
     """Plain torch trace.  seed: int32 [n] (uint32 bits); page0: the
     page every ray starts on.  Returns (C4, dist), or (fb int32 BGRA
-    bits, dist) with pack=True.  counts: see tracer_core.run_segment."""
+    bits, dist) with pack=True.  counts: see tracer_core.run_segment;
+    segs: see tracer_core.trace_wave_env."""
     page = torch.full_like(seed, page0)
     col, dist = trace_wave_env(wt, cfg, ifrom, iray, lcg.u32(seed), sec,
-                               page, counts)
+                               page, counts, segs)
     return (col_ftoint(col), dist) if pack else (col, dist)
 
 
@@ -95,6 +113,8 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
             seed: torch.Tensor, sec, page0: int):
+    """Launch the instance cfg selects.  Returns (fb, dist, tstep): tstep
+    int32 [n_waves, n] from the profile instance, else None."""
     global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
         LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED
     n = ifrom.x.shape[0]
@@ -104,10 +124,32 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     ins = [t.data_ptr() for t in keep]
     fb = torch.empty(n, dtype=torch.int32, device=dev)
     dist = torch.empty(n, dtype=torch.float32, device=dev)
-    lib = _build.load("tracer", _SIGS)
+    tstep = None
     stream = torch.cuda.current_stream(dev).cuda_stream
     inv = float(np.float32(1.0 / cfg.samples))
     fused = cfg.fused and not cfg.parity
+    var = variant(cfg)
+    if var:
+        lib = _build.load("tracer_variants", _SIGS_VARIANTS)
+        if var == "profile":
+            tstep = torch.empty((cfg.n_waves, n), dtype=torch.int32,
+                                device=dev)
+        with torch.cuda.device(dev):
+            err = lib.pwnfps_trace_variant(
+                *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
+                wt.sph.data_ptr(), wt.bound.data_ptr(),
+                n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
+                int(cfg.space_skip and wt.skip_ok), wt.n_pages,
+                wt.sphere_page, page0, VARIANTS[var],
+                float(np.float32(sec)), float(np.float32(wt.slack)),
+                lcg.INV_MOD_F, fb.data_ptr(), dist.data_ptr(),
+                tstep.data_ptr() if tstep is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"trace kernel ({var}) launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES_VARIANT[var] += 1
+        return fb, dist, tstep
+    lib = _build.load("tracer", _SIGS)
     with torch.cuda.device(dev):
         if cfg.parity:
             err = lib.pwnfps_trace_parity(
@@ -144,7 +186,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
         LAUNCHES_PAGED += 1
     else:
         LAUNCHES += 1
-    return fb, dist
+    return fb, dist, tstep
 
 
 def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
@@ -166,4 +208,25 @@ def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     if not pack:
         raise NotImplementedError("the trace kernel writes packed BGRA "
                                   "only: pass pack=True")
+    return _launch(wt, cfg, ifrom, iray, seed, sec, page0)[:2]
+
+
+def trace_wave_profile(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
+                       iray: V3, seed: torch.Tensor, sec, page0: int = 0):
+    """trace_wave with cfg.profile set: (fb int32 [n] BGRA bits, dist
+    [n], tstep int32 [n_waves, n]), each wave's terminal DDA step count
+    a ray (tracer_core.run_segment; 0 for a wave the ray's chain never
+    reached).  The kernel-granular counterpart of reading SegOut.tstep
+    per wave in the JAX package (tools/occupancy.py)."""
+    cfg = dataclasses.replace(cfg, profile=True)
+    check_config(cfg)
+    _check_inputs(wt, ifrom, iray, seed, page0)
+    dev = ifrom.x.device
+    if dev.type == "cpu":
+        segs = []
+        fb, dist = trace_wave_plain(wt, cfg, ifrom, iray, seed, sec, True,
+                                    page0=page0, segs=segs)
+        return fb, dist, torch.stack([o.tstep for o in segs])
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     return _launch(wt, cfg, ifrom, iray, seed, sec, page0)

@@ -18,6 +18,14 @@ scan reads the lane's page of the bucket table.
 `run_fused` is the fused wave loop (`cfg.fused`, fast mode): one DDA
 loop in which each lane shades and restarts its own bounces.
 
+The measurement instances of the JAX module, fast mode with one sample,
+one at a time (`check_config`): `cfg.profile` records each lane's
+terminal step (`SegState.tstep`, per wave in the SegOuts of
+`trace_wave_env`'s `segs`); `cfg.water=False` shades the water floor
+with a flat normal; `cfg.probe` adds one of the calibration pads of
+`PROBES`, whose results a data-opaque select throws away, so the bits
+stay those of probe="".
+
 Two modes, as in the JAX package, selected by `cfg.parity`:
 
   * fast: the hardware rsqrt/div/sqrt/sin/cos/exp, the empty-space
@@ -148,6 +156,7 @@ class SegState(NamedTuple):
     aux_idx: torch.Tensor
     aux_diff: torch.Tensor
     tmeta: torch.Tensor       # terminal kind | colour id << 2
+    tstep: torch.Tensor       # i32 step on which the lane ended (profile)
 
 
 class SegOut(NamedTuple):
@@ -159,6 +168,8 @@ class SegOut(NamedTuple):
     tpos: V3
     tray: V3
     tpage: torch.Tensor       # page the segment ended on
+    tstep: torch.Tensor       # step + 1 of the lane's death, maxsteps if
+                              # the budget ran out, 0 if never active
     aux_refl: torch.Tensor
     aux_pos: V3
     aux_norm: V3
@@ -421,7 +432,8 @@ def init_segment(wt: TorchWorld, ifrom: V3, iray: V3, active,
         gx=gx, gy=gy, gz=gz, cx=cx, cz=cz, page=page,
         cdist=z1, fog=z1, ldir=zi + FYN, active=active.clone(),
         aux_dist=z1 - 1.0, aux_t0=z1 - 1.0, sph_dirty=zi,
-        aux_apos=V3(z1, z1, z1), aux_idx=zi, aux_diff=z1, tmeta=zi)
+        aux_apos=V3(z1, z1, z1), aux_idx=zi, aux_diff=z1, tmeta=zi,
+        tstep=zi)
 
 
 # ---- one DDA step ----------------------------------------------------------
@@ -483,26 +495,29 @@ def _ramp_calc(s: SegState, cls, math: Math):
 
 def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
                  hoisted: bool, math: Math,
-                 counts: dict | None = None) -> SegState:
+                 counts: dict | None = None, probe: str = "") -> SegState:
     """One DDA step for every lane (tracer_core.segment_body, one page).
     hoisted: fast mode's per-line sphere candidates (else parity mode's
-    cell-driven bucket scan).  Dead lanes come out unchanged in every
-    field a later stage reads."""
+    cell-driven bucket scan).  probe: a calibration pad of PROBES, or "".
+    Dead lanes come out unchanged in every field a later stage reads."""
     W_ = torch.where
     cls = s.ent & 0xF
+    # probe "fire1" runs the event bodies every step (tracer_core.py:717):
+    # each is per-lane masked, so the bits are those of probe=""
+    fire1 = probe == "fire1"
 
     # ---- rare events: sphere refresh or scan, portal targets, ramp ----
     if not hoisted:
         s = sphere_pass(wt, s, math, counts)
     else:
         refresh = (s.sph_dirty & 1) != 0
-        if bool((refresh & s.active).any()):
+        if fire1 or bool((refresh & s.active).any()):
             a6 = sphere_all(wt, s, refresh, merge=True, math=math)
             s = s._replace(aux_dist=a6[0], aux_apos=a6[1], aux_idx=a6[2],
                            aux_diff=a6[3], aux_t0=a6[4],
                            sph_dirty=W_(refresh, a6[5], s.sph_dirty))
     is_portal = cls == W.PORTAL
-    if bool((is_portal & s.active).any()):
+    if fire1 or bool((is_portal & s.active).any()):
         p = _portal_calc(wt, s)
     else:
         p = None
@@ -623,6 +638,12 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
     tgt_cz = W_(pgo, cz_f, cz2)
     tgt_pg = W_(pgo, p["dpage"], s.page)
     f_next = fetch(wt, tgt_cx, tgt_cz, tgt_pg)
+    # the pads' data-opaque select: true unless cdist is NaN
+    opq = s.cdist > -1e30
+    if probe == "fetch2x":
+        # a second fetch at a runtime-equal index (tracer_core.py:1082)
+        f_dup = fetch(wt, tgt_cx, tgt_cz + W_(opq, 0, 1), tgt_pg)
+        f_next = W_(opq, f_next, f_dup)
 
     # ---- transitions ----
     ncls = f_next & 0xF
@@ -701,6 +722,14 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
                    W_(m_ryhit, ldir_ry,
                       W_(m_yhit | m_wall2, ldir2, s.ldir))))
     new_ent = W_(cont2 | pgo2, f_next, s.ent)
+    if probe in _PADS:
+        new_fog, new_tmeta = _pad(
+            probe, opq, new_fog, new_tmeta,
+            vs=(pos.x, pos.y, pos.z, ray.x, ray.y, ray.z, wx, wz),
+            mul=ray2.x, add=pos2.z,
+            ms=(xstep, zstep, term, pgo2, cont2, my2, ymin, xmin),
+            ns=(is_wall, is_tall, is_ramp, is_portal, ft, near, sphm,
+                wallT))
 
     s = s._replace(pos=new_pos, ray=new_ray, wdist=new_wd, iavel=new_ia,
                    ent=new_ent, gx=new_gx.to(I32), gz=new_gz.to(I32),
@@ -729,6 +758,54 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
                       active=s.active & ~end_sph)
 
 
+# the calibration pads (RenderConfig.probe; tools/probe_ladder.py), each as
+# tracer_core.py:1217-1290 writes it
+_PADS = ("pad64", "pad64d", "sel64", "bool128", "int128", "cmp64")
+PROBES = ("fire1", "fetch2x") + _PADS
+
+
+def _pad(probe, opq, new_fog, new_tmeta, vs, mul, add, ms, ns):
+    """One pad's chains over the step's values `vs` (pos, ray, wx, wz),
+    its live masks `ms` and cell-class masks `ns`; the result replaces
+    fog or tmeta only where `opq` is false (cdist NaN), as in the JAX
+    module.  Returns (fog, tmeta)."""
+    W_ = torch.where
+    if probe == "pad64":          # 8 independent 8-step mul+add chains
+        acc = None
+        for u in vs:
+            for _ in range(8):
+                u = u * mul + add
+            acc = u if acc is None else acc + u
+        return W_(opq, new_fog, acc), new_tmeta
+    if probe == "pad64d":         # one dependent 64-step mul+add chain
+        u = vs[0]
+        for _ in range(64):
+            u = u * mul + add
+        return W_(opq, new_fog, u), new_tmeta
+    if probe in ("sel64", "cmp64"):
+        acc = None
+        for j, v in enumerate(vs):
+            u = v
+            for k, m in enumerate(ms):
+                if probe == "sel64":      # 8-deep select chains
+                    u = W_(m, u, vs[(j + 1) % 8])
+                else:                     # compare + select pairs
+                    u = W_(u < vs[(j + k + 1) % 8], u, vs[(j + k) % 8])
+            acc = u if acc is None else acc + u
+        return W_(opq, new_fog, acc), new_tmeta
+    # bool128 on bool masks, int128 on i32 {0, 1} words: 64 and + 64 xor
+    if probe == "int128":
+        ms = [m.to(I32) for m in ms]
+        ns = [n.to(I32) for n in ns]
+    acc = None
+    for m in ms:
+        u = m
+        for n in ns:
+            u = u ^ (m & n)
+        acc = u if acc is None else acc | u
+    return new_fog, W_(opq, new_tmeta, W_(acc != 0, 1, 2))
+
+
 def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
                 iray: V3, active, page, counts: dict | None = None
                 ) -> SegOut:
@@ -741,7 +818,12 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     counts, when given, accumulates the work these rays needed (what the
     kernel's bound is computed from): `segments` traced, DDA `steps`
     taken by live lanes, and in parity mode the bucket `slot_tests` and
-    the `slot_hits` among them that run the exact div and sqrt."""
+    the `slot_hits` among them that run the exact div and sqrt.
+
+    With cfg.profile the output's tstep holds each lane's terminal step
+    (tracer_core.py:1436-1456): step + 1 on the step the lane died,
+    maxsteps when it was still active at the end of the budget, 0 for a
+    lane never active."""
     use_skip = cfg.space_skip and not cfg.parity and wt.skip_ok
     hoisted = not cfg.parity and wt.n_spheres > 0
     s = init_segment(wt, ifrom, iray, active, math, page)
@@ -758,9 +840,12 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     while step < cfg.maxsteps and idx.numel() > 0:
         if counts is not None:
             counts["steps"] += n_live
-        s = segment_body(wt, s, use_skip, hoisted, math, counts)
+        was = s.active
+        s = segment_body(wt, s, use_skip, hoisted, math, counts, cfg.probe)
         step += 1
         live = s.active
+        if cfg.profile:
+            s = s._replace(tstep=torch.where(was & ~live, step, s.tstep))
         n_live = int(live.sum())
         if n_live < idx.numel():
             if 2 * n_live <= idx.numel() or n_live == 0:
@@ -772,7 +857,9 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
                 s = _tmap(lambda v: v[live], s)
     full = _tmap2(lambda f, v: f.index_copy(0, idx, v), full, s)
     # still-active rays ran out of steps: sky colour = current ray dir
-    full = full._replace(tmeta=torch.where(full.active, T_SKY, full.tmeta))
+    full = full._replace(
+        tmeta=torch.where(full.active, T_SKY, full.tmeta),
+        tstep=torch.where(full.active, cfg.maxsteps, full.tstep).to(I32))
     return seg_out_view(wt, full, math)
 
 
@@ -780,7 +867,8 @@ def seg_out_view(wt: TorchWorld, s: SegState, math: Math) -> SegOut:
     refl, apos, anorm, acol = sphere_view(wt, s, math)
     return SegOut(tkind=s.tmeta & 3, tldir=s.ldir,
                   tcolid=(s.tmeta >> 2) & 3, tfog=s.fog, tdist=s.cdist,
-                  tpos=s.pos, tray=s.ray, tpage=s.page, aux_refl=refl,
+                  tpos=s.pos, tray=s.ray, tpage=s.page, tstep=s.tstep,
+                  aux_refl=refl,
                   aux_pos=apos, aux_norm=anorm, aux_col=acol)
 
 
@@ -795,9 +883,10 @@ def _palette(colid, chan: int):
 
 
 def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
-                     depth_ok: bool, math: Math):
-    """Wall shading + bounce prep (tracer_core.shade_and_bounce, with
-    the animated water normal)."""
+                     depth_ok: bool, math: Math, water: bool = True):
+    """Wall shading + bounce prep (tracer_core.shade_and_bounce).
+    water=False: the flat floor normal (0, 1, 0), not normalised, in
+    place of the animated one (tracer_core.py:1713-1722)."""
     W_ = torch.where
     rx, ry, rz = out.tray.x, out.tray.y, out.tray.z
     ld = out.tldir
@@ -830,10 +919,14 @@ def shade_and_bounce(out: SegOut, icol: C4, seed, sec: float,
     mpos = (pos + V3(nudx, nudy, nudz)).where(is_wall, pos)
 
     is_water = is_wall & (ld == FYN)
-    ang = _PI_TWO * ((math.sin(_PI_HALF * mpos.x)
-                      + math.cos(_PI_HALF * mpos.z)) + sec)
-    wnorm = normalise_sse(V3(math.sin(ang), torch.full_like(ang, 38.0),
-                             math.cos(ang)), math.rsq)
+    if water:
+        ang = _PI_TWO * ((math.sin(_PI_HALF * mpos.x)
+                          + math.cos(_PI_HALF * mpos.z)) + sec)
+        wnorm = normalise_sse(V3(math.sin(ang), torch.full_like(ang, 38.0),
+                                 math.cos(ang)), math.rsq)
+    else:
+        z2 = torch.zeros_like(mpos.x)
+        wnorm = V3(z2, z2 + 1.0, z2)
     norm = wnorm.where(is_water, out.aux_norm)
 
     mpos = (out.aux_pos - ray * 0.001).where(is_sph, mpos)
@@ -1021,21 +1114,41 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     return col_out, dist_out
 
 
+def variant(cfg: RenderConfig) -> str:
+    """The measurement instance cfg asks for: "profile", "nowater", a
+    probe's name, or "" for none."""
+    names = [name for name, on in (("profile", cfg.profile),
+                                   ("nowater", not cfg.water),
+                                   (cfg.probe, bool(cfg.probe))) if on]
+    if len(names) > 1:
+        raise NotImplementedError(
+            f"one measurement instance at a time, not {' + '.join(names)}")
+    return names[0] if names else ""
+
+
 def check_config(cfg: RenderConfig) -> None:
     """Raise on every RenderConfig feature the port does not run, and
     (ValueError) on the fused loop with samples > 1, which the JAX
-    package asserts against.  Parity mode ignores `fused`, as the JAX
-    package does.
+    package asserts against, and on an unknown probe.  Parity mode
+    ignores `fused`, as the JAX package does.  The measurement instances
+    (profile, water=False, a probe) run in fast mode with one sample, one
+    at a time; profile with `fused` takes the per-wave structure, as the
+    JAX package does (tracer_core.py:1763).
     The Mosaic layout knobs (step_chunk, pack_carry, trace_2d,
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
     ignored; step_chunk also sets when the fused loop checks its cap."""
-    missing = [name for name, bad in (
-        ("profile=True", cfg.profile), ("probe", bool(cfg.probe)),
-        ("water=False", not cfg.water))
-        if bad]
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(missing))
+    if cfg.probe and cfg.probe not in PROBES:
+        raise ValueError(f"unknown probe {cfg.probe!r}: one of {PROBES}")
+    var = variant(cfg)
+    if var:
+        if cfg.parity:
+            raise NotImplementedError(f"{var} in parity mode: not ported")
+        if cfg.samples != 1:
+            raise NotImplementedError(
+                f"{var} with samples={cfg.samples}: not ported")
+        if cfg.fused and var != "profile":
+            raise NotImplementedError(
+                f"{var} with the fused wave loop: not ported")
     if cfg.fused and not cfg.parity and cfg.samples != 1:
         raise ValueError(f"the fused wave loop traces one sample, not "
                          f"samples={cfg.samples}")
@@ -1048,11 +1161,14 @@ WEYL = 0x9E3779B9
 
 def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                    iray: V3, seed, sec, page,
-                   counts: dict | None = None):
+                   counts: dict | None = None,
+                   segs: list | None = None):
     """Full multi-bounce trace (tracer_core.trace_wave_env).
     seed: int64 uint32 states; page: i32 [n] start page of each ray.
     Returns (col: C4, dist).  cfg.fused in fast mode takes the fused
-    wave loop (run_fused); parity mode ignores it.
+    wave loop (run_fused); parity mode and profile runs ignore it.
+    segs, when given, gets each wave's SegOut in order (one sample):
+    its tstep with cfg.profile, its terminal kind and face always.
 
     The primary wave consumes no RNG, so it is traced once and shared:
     each of the cfg.samples chains shades it with its own seed stream
@@ -1062,7 +1178,7 @@ def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     check_config(cfg)
     math = make_math(wt, cfg.parity)
     sec = float(np.float32(sec))
-    if cfg.fused and not cfg.parity:
+    if cfg.fused and not cfg.parity and not cfg.profile:
         return run_fused(wt, cfg, math, ifrom, iray, seed, sec, page,
                          counts)
     one = torch.ones_like(ifrom.x)
@@ -1079,8 +1195,10 @@ def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                 out = run_segment(wt, cfg, math, cur_from, cur_ray, active,
                                   pg, counts)
             pg = out.tpage    # bounce waves continue in the hit's page
+            if segs is not None:
+                segs.append(out)
             base, refl, bounce, mpos, mray, seed = shade_and_bounce(
-                out, icol, seed, sec, k < cfg.reflect, math)
+                out, icol, seed, sec, k < cfg.reflect, math, cfg.water)
             bases.append(base)
             refls.append(refl)
             bounces.append(bounce)

@@ -74,6 +74,17 @@ def _vec3(v, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
 
+def frame_rays(cfg: RenderConfig, origin, rayb, rdx, rdy, device):
+    """(ifrom V3, rays V3, seeds int32) of a frame's h*w primary rays on
+    `device`: the camera origin, gen_rays and pixel_seeds."""
+    h, w = cfg.height, cfg.width
+    rays = gen_rays(_vec3(rayb, device), _vec3(rdx, device),
+                    _vec3(rdy, device), w, h, cfg.parity)
+    o = _vec3(origin, device)
+    ifrom = V3(*(o[i].expand(h * w).contiguous() for i in range(3)))
+    return ifrom, rays, pixel_seeds(w, h, device)
+
+
 def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
                  origin, rayb, rdx, rdy, sec):
     """-> (framebuffer [h, w] int32 holding uint32 BGRA, zbuf [h, w] f32),
@@ -83,14 +94,9 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     if not 0 <= cfg.cam_page < meta.n_pages:
         raise ValueError(f"cam_page {cfg.cam_page} is not a page of a "
                          f"{meta.n_pages}-page world")
-    dev = world.device
     h, w = cfg.height, cfg.width
-    rays = gen_rays(_vec3(rayb, dev), _vec3(rdx, dev), _vec3(rdy, dev),
-                    w, h, cfg.parity)
-    n = h * w
-    o = _vec3(origin, dev)
-    ifrom = V3(*(o[i].expand(n) for i in range(3)))
-    seeds = pixel_seeds(w, h, dev)
+    ifrom, rays, seeds = frame_rays(cfg, origin, rayb, rdx, rdy,
+                                    world.device)
     fb, zbuf = trace_wave(world, cfg, ifrom, rays, seeds, sec, pack=True,
                           page0=cfg.cam_page)
     fb, zbuf = fb.reshape(h, w), zbuf.reshape(h, w)

@@ -1,0 +1,186 @@
+"""Per-wave step occupancy of the tracer (the counterpart of
+tools/occupancy.py, which reads the Mosaic kernel's lane occupancy from
+the jnp backend's `tstep`).
+
+Traces a scene's frame with the profile instance
+(`ops.tracer.trace_wave_profile`: each ray's terminal DDA step count in
+each bounce wave) and groups the lanes three ways:
+
+  * `tile`: the TPU kernel's (64, 128)-pixel tiles of 8192 lanes, with
+    each tile's maximum rounded up to `step_chunk` (the while loop tests
+    at chunk boundaries), so that the numbers compare with the JAX tool's;
+  * `warp`: 32 consecutive threads of the CUDA kernel's flat launch
+    order, which run in lockstep: a warp steps as long as its longest
+    ray, one cell a step, with no chunk rounding;
+  * `block`: the kernel's blocks of `BLOCK` threads.
+
+For each grouping and wave: the share of live lanes, the p50/p99/max of
+their step counts, `occupancy` = steps the lanes needed / steps their
+groups executed (sum over live groups of max steps x lanes), and the
+live groups; and over the chain, `fused_step_bound` (what a fused wave
+loop could save: executed per wave over executed when a group runs its
+longest lane's total), `needed_frac_unfused` and `needed_frac_fused`.
+The CUDA kernel marches each ray's whole chain in one thread, so its
+warps are closest to the fused model.
+
+Scenes (`scene.py`): `default` the flagship frame at 1920x1080, `stress`
+the portal chain at 1280x720, `maze` the paged maze at 1280x720 from its
+camera page, `ptrace` the flagship's demo level at 1920x1080 with
+reflect 6 and one chain (config #5's depth), each at sec 0.25 as the JAX
+tool runs them.
+
+    python -m pwnfps_tpu_torch.tools.occupancy [default stress maze ptrace]
+        [--device cuda|cpu] [--width W --height H] [--out PATH]
+
+Writes the JSON to --out (default pwnfps_tpu_torch/_build/occupancy.json)
+and prints one line a scene.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ..ops import tracer
+from ..render.frame import frame_rays
+from ..scene import flagship_scene, maze_scene, ptrace_scene, stress_scene
+
+SEC = 0.25
+TILE_LANES = 8192            # the TPU kernel's tile, 64 x 128 pixels
+BH, BW = 64, 128
+WARP = 32
+BLOCK = 128                  # threads a block of csrc/tracer_body.cuh
+# beside the built kernels, in the package's git-ignored _build/
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "_build", "occupancy.json")
+
+
+def tile_ids(h: int, w: int) -> np.ndarray:
+    """TPU tile id per pixel, [h*w] (tools/occupancy.py:_tile_ids)."""
+    hp = -(-h // BH) * BH
+    wp = -(-w // BW) * BW
+    ids = np.arange((hp // BH) * (wp // BW)).reshape(hp // BH, wp // BW)
+    per_px = np.repeat(np.repeat(ids, BH, 0), BW, 1)[:h, :w]
+    return per_px.reshape(-1)
+
+
+def lockstep_ids(n: int, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(group id of each of n lanes in flat order, lanes a group) for
+    groups of `size` consecutive threads; the last group may be short."""
+    ids = np.arange(n) // size
+    return ids, np.bincount(ids)
+
+
+def wave_stats(tstep: np.ndarray, ids: np.ndarray, lanes, chunk: int = 1):
+    """Occupancy of each wave of tstep int [n_waves, n] (0: lane not live
+    in that wave) over the groups `ids` [n], each executing `lanes` (a
+    scalar or one a group) lanes for its longest lane's steps rounded up
+    to `chunk`.  Returns (waves, summary) as tools/occupancy.py's
+    wave_stats does, unrounded, plus needed_frac_fused."""
+    n_groups = int(ids.max()) + 1
+    lanes = np.broadcast_to(np.asarray(lanes, np.int64), (n_groups,))
+    lane_total = np.zeros(tstep.shape[1], np.int64)
+    exec_unfused = 0.0
+    waves = []
+    for k, steps in enumerate(np.asarray(tstep, np.int64)):
+        act = steps > 0
+        live = np.bincount(ids[act], minlength=n_groups) > 0
+        tmax = np.zeros(n_groups, np.int64)
+        np.maximum.at(tmax, ids[act], steps[act])
+        tmax = -(-tmax // chunk) * chunk
+        executed = float((tmax * lanes)[live].sum())
+        needed = float(steps[act].sum())
+        lane_total[act] += steps[act]
+        exec_unfused += executed
+        waves.append(dict(
+            wave=k, live_frac=float(act.mean()),
+            steps_p50=float(np.percentile(steps[act], 50))
+            if act.any() else 0.0,
+            steps_p99=float(np.percentile(steps[act], 99))
+            if act.any() else 0.0,
+            steps_max=int(steps[act].max()) if act.any() else 0,
+            occupancy=needed / executed if executed else 1.0,
+            live_groups=int(live.sum())))
+    tmax_tot = np.zeros(n_groups, np.int64)
+    np.maximum.at(tmax_tot, ids, lane_total)
+    tmax_tot = -(-tmax_tot // chunk) * chunk
+    exec_fused = float((tmax_tot * lanes)[tmax_tot > 0].sum())
+    needed = float(lane_total.sum())
+    summary = dict(
+        fused_step_bound=exec_unfused / exec_fused if exec_fused else 1.0,
+        needed_frac_unfused=needed / exec_unfused if exec_unfused else 1.0,
+        needed_frac_fused=needed / exec_fused if exec_fused else 1.0)
+    return waves, summary
+
+
+def all_stats(tstep: np.ndarray, h: int, w: int, chunk: int) -> dict:
+    """wave_stats over the TPU tiles, the warps and the blocks."""
+    out = {}
+    for name, (ids, lanes, ch) in (
+            ("tile", (tile_ids(h, w), TILE_LANES, chunk)),
+            ("warp", (*lockstep_ids(h * w, WARP), 1)),
+            ("block", (*lockstep_ids(h * w, BLOCK), 1))):
+        waves, summary = wave_stats(tstep, ids, lanes, ch)
+        out[name] = dict(waves=waves, **summary)
+    return out
+
+
+def scene(name: str, width: int, height: int, device):
+    """The tool's scene `name` at width x height."""
+    if name == "default":
+        return flagship_scene(width, height, device)
+    if name == "stress":
+        return stress_scene(width, height, device)
+    if name == "maze":
+        return maze_scene(width, height, device)
+    if name == "ptrace":
+        return ptrace_scene(width, height, device, samples=1)
+    raise ValueError(f"unknown scene {name!r}")
+
+
+SCENES = {"default": (1920, 1080), "stress": (1280, 720),
+          "maze": (1280, 720), "ptrace": (1920, 1080)}
+
+
+def profile(sc, device):
+    """The scene's frame through the profile instance: (fb, dist, tstep
+    [n_waves, n])."""
+    ifrom, rays, seeds = frame_rays(sc.cfg, *sc.frame_args(0)[:4], device)
+    return tracer.trace_wave_profile(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                     SEC, page0=sc.cfg.cam_page)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("scenes", nargs="*", default=list(SCENES))
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--out", default=OUT)
+    args = p.parse_args(argv)
+    res = {}
+    for name in args.scenes:
+        w, h = SCENES[name]
+        w, h = args.width or w, args.height or h
+        sc = scene(name, w, h, args.device)
+        _, _, tstep = profile(sc, args.device)
+        dev = torch.device(args.device)
+        res[name] = dict(res=f"{w}x{h}", reflect=sc.cfg.reflect,
+                         device=(torch.cuda.get_device_name(dev)
+                                 if dev.type == "cuda" else dev.type),
+                         **all_stats(tstep.cpu().numpy(), h, w,
+                                     max(1, sc.cfg.step_chunk)))
+        print(json.dumps({name: res[name]}), flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 """Scene-object pool and the per-frame spatial hash.
-Copied from pwnfps_tpu/world/objects.py, less its native C++ rebuild.
+Copied from pwnfps_tpu/world/objects.py.
 
 The reference keeps a fixed pool of tagged-union "parts" and rebuilds a
 per-cell bucket list of sphere pointers every frame
@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from ..host import native
 
 OBJ_MAX = 10000      # defs.h:4
 T_INVAL = 0
@@ -83,6 +85,12 @@ class ObjectPool:
         n = self.objs_num
         if n > NS_MAX:
             raise ValueError(f"too many live objects for device path: {n}")
+        # native C++ rebuild when available (host/native.py); identical
+        # semantics incl. insertion order - differentially tested
+        res = native.prepare_render_native(self, K_BUCKET)
+        if res is not None:
+            buckets, counts, _masks, _ = res
+            return self._soa(n, buckets, counts)
         counts = np.zeros((64, 64), np.int32)
         buckets = np.full((64, 64, K_BUCKET), -1, np.int32)
         for i in range(n):

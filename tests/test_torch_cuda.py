@@ -480,3 +480,72 @@ def test_ring_atlas_parity_equals_one_page_chain(dev):
     assert _delta(before) == (0, 0, 0, 1, 0, 0, 0, 0, 1)
     assert torch.equal(fb_r, fb_o)
     assert torch.equal(z_r.view(torch.int32), z_o.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", list(tracer.VARIANTS))
+@pytest.mark.parametrize("world", ["flagship", "maze"])
+def test_variant_kernels_match_plain(dev, variant, world):
+    """Each measurement instance equals the plain tracer in fb, zbuf and
+    (profile) the per-wave tstep; each probe also equals the base
+    kernel, and nowater differs from it only in colour."""
+    if world == "flagship":
+        sc = flagship_scene(160, 90, dev)
+    else:
+        sc = maze_scene(160, 90, dev)
+        sc.cam = portal_camera(sc)
+    kw = {"profile": dict(profile=True), "nowater": dict(water=False)}.get(
+        variant, dict(probe=variant))
+    cfg = dataclasses.replace(sc.cfg, **kw)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    page0 = sc.cfg.cam_page
+    before = dict(tracer.LAUNCHES_VARIANT)
+    if variant == "profile":
+        fb_k, z_k, t_k = tracer.trace_wave_profile(
+            sc.tworld, cfg, ifrom, rays, seeds, sec, page0=page0)
+        segs = []
+        fb_p, z_p = tracer.trace_wave_plain(sc.tworld, cfg, ifrom, rays,
+                                            seeds, sec, True, page0=page0,
+                                            segs=segs)
+        assert torch.equal(t_k, torch.stack([o.tstep for o in segs]))
+    else:
+        fb_k, z_k = tracer.trace_wave(sc.tworld, cfg, ifrom, rays, seeds,
+                                      sec, pack=True, page0=page0)
+        fb_p, z_p = tracer.trace_wave_plain(sc.tworld, cfg, ifrom, rays,
+                                            seeds, sec, True, page0=page0)
+    assert tracer.LAUNCHES_VARIANT[variant] == before[variant] + 1
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+    fb_b, z_b = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds, sec,
+                                  pack=True, page0=page0)
+    assert torch.equal(z_k.view(torch.int32), z_b.view(torch.int32))
+    if variant != "nowater":
+        assert torch.equal(fb_k, fb_b)
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_game_session_on_the_card(dev, parity):
+    """The session renders on the card through one tracer and one blur
+    launch a frame; its trace equals the plain tracer's on the card."""
+    from pwnfps_tpu_torch.core.config import RenderConfig
+    from pwnfps_tpu_torch.host.loop import GameSession
+    from pwnfps_tpu_torch.host.physics import Keys
+    from pwnfps_tpu_torch.ops.world import world_to_torch
+
+    w, h = 64, 40
+    sess = GameSession(cfg=RenderConfig(width=w, height=h, parity=parity),
+                       device=dev)
+    for _ in range(3):
+        sess.tick(1 / 60, Keys(forward=True, turnleft=True))
+    before = _counts()
+    fb, zb = sess.render()
+    assert sum(_delta(before)) == 2           # one trace, one blur
+    assert fb.shape == (h, w) and fb.dtype == np.uint32
+    assert len(np.unique(fb)) > 8
+    tworld = world_to_torch(*sess.build_world(), dev)
+    ifrom, rays, seeds = sess.frame_rays()
+    fb_k, z_k = tracer.trace_wave(tworld, sess.cfg, ifrom, rays, seeds,
+                                  sess.sec, pack=True)
+    fb_p, z_p = tracer.trace_wave_plain(tworld, sess.cfg, ifrom, rays, seeds,
+                                        sess.sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))

@@ -111,11 +111,11 @@ def test_port_never_imports_jax():
     scenes, rendering a tiny frame of each single-frame path (fast,
     parity, the paged maze in both modes and fused, the multi-sample
     frame in both modes, the portal chain), a tiny camera batch, a frame
-    sharded over a mesh and a camera step on a mesh, and running both
-    tools on the CPU imports neither jax nor any module of the JAX
-    package pwnfps_tpu."""
+    sharded over a mesh and a camera step on a mesh, a frame and a tick
+    of the game session, and running the three tools on the CPU imports
+    neither jax nor any module of the JAX package pwnfps_tpu."""
     code = (
-        "import contextlib, io, sys, pkgutil, importlib\n"
+        "import contextlib, io, os, sys, pkgutil, importlib\n"
         "import pwnfps_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -156,6 +156,17 @@ def test_port_never_imports_jax():
         "sc = flagship_scene(8, 16, 'cpu', maxsteps=64)\n"
         "render_frame_sharded(sc.world, sc.meta, sc.cfg, *sc.frame_args(1),\n"
         "                     mesh_for(1, 2, 'cpu'))\n"
+        "from pwnfps_tpu_torch.core.config import RenderConfig\n"
+        "from pwnfps_tpu_torch.host.loop import GameSession\n"
+        "from pwnfps_tpu_torch.host.physics import Keys\n"
+        "from pwnfps_tpu_torch.tools import occupancy\n"
+        "sess = GameSession(cfg=RenderConfig(width=8, height=4, maxsteps=64),\n"
+        "                   device='cpu')\n"
+        "sess.render()\n"
+        "sess.tick(1 / 60, Keys(forward=True))\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    occupancy.main(['maze', '--device', 'cpu', '--width', '8',\n"
+        "                    '--height', '4', '--out', os.devnull])\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'pwnfps_tpu'))\n"
         "assert not bad, bad\n"

@@ -129,10 +129,25 @@ def test_unported_config_raises():
     sc = flagship_scene(8, 2, "cpu", n_spheres=3)
     rays = V3(*(torch.ones(4) for _ in range(3)))
     seeds = torch.zeros(4, dtype=torch.int32)
-    for kw in (dict(profile=True), dict(probe="fire1"), dict(water=False)):
-        cfg = dataclasses.replace(sc.cfg, **kw)
+    # the measurement instances render in fast mode with one sample (the
+    # plain tracer on the CPU); with parity mode or samples > 1, or the
+    # fused loop (profile aside: it takes the per-wave structure) they raise
+    for kw in (dict(profile=True), dict(probe="fire1"), dict(water=False),
+               dict(profile=True, fused=True)):
+        cfg = dataclasses.replace(sc.cfg, maxsteps=64, **kw)
+        before = dict(tracer.LAUNCHES_VARIANT)
+        col, dist = tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
+        assert tracer.LAUNCHES_VARIANT == before
+        assert torch.isfinite(dist).all()
+        for extra in (dict(parity=True), dict(samples=2)):
+            with pytest.raises(NotImplementedError):
+                tracer.trace_wave(sc.tworld, dataclasses.replace(
+                    cfg, **extra), rays, rays, seeds, SEC)
+    for kw in (dict(probe="fire1", fused=True), dict(water=False,
+                                                     fused=True)):
         with pytest.raises(NotImplementedError):
-            tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
+            tracer.trace_wave(sc.tworld, dataclasses.replace(sc.cfg, **kw),
+                              rays, rays, seeds, SEC)
     # the fused loop renders in fast mode, and parity mode ignores it;
     # the fused loop traces one sample (the JAX package asserts so)
     for kw in (dict(fused=True), dict(parity=True, fused=True),
