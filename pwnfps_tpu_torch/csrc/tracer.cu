@@ -29,7 +29,11 @@ int launch(const Params& a, void* stream) {
 // samples); fused = 1 runs the fused wave loop (samples must be 1), its
 // cap checked every step_chunk iterations.  Output: out_fb i32 [n] packed
 // BGRA of the chains' mean and out_dist f32 [n] primary-wave distance.
-// Launches on `stream`; returns cudaGetLastError().
+// width: the rays are a row-major image this wide (each warp traces an
+// 8x4-pixel tile of it), or 0 (each warp 32 consecutive rays); queue: i32
+// [2] of zeros that only launches on `stream` use, from which the
+// persistent instances (samples, fused) take tiles and which they leave
+// zero.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             const void* dx, const void* dy, const void* dz,
                             const void* seeds, const void* ent,
@@ -40,7 +44,7 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
                             int samples, int fused, int step_chunk,
                             float sec, float slack, float inv_mod,
                             float inv, void* out_fb, void* out_dist,
-                            void* stream) {
+                            int width, void* queue, void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -70,13 +74,15 @@ extern "C" int pwnfps_trace(const void* ox, const void* oy, const void* oz,
     a.inv = inv;
     a.out_fb = (int32_t*)out_fb;
     a.out_dist = (float*)out_dist;
+    a.queue = (int*)queue;
+    set_tiles(a, width);
     return launch<false>(a, stream);
 }
 
-// Trace n rays in parity mode.  As pwnfps_trace, less the bound, the
-// skip and the fused loop, plus the bucket table [n_pages * 4096 *
-// k_bucket] i32 and the SSE rsqrt [8192] and rcp [4096] tables (uint32
-// bits).
+// Trace n rays in parity mode (persistent warps on the queue).  As
+// pwnfps_trace, less the bound, the skip and the fused loop, plus the
+// bucket table [n_pages * 4096 * k_bucket] i32 and the SSE rsqrt [8192]
+// and rcp [4096] tables (uint32 bits).
 extern "C" int pwnfps_trace_parity(
         const void* ox, const void* oy, const void* oz, const void* dx,
         const void* dy, const void* dz, const void* seeds, const void* ent,
@@ -84,7 +90,8 @@ extern "C" int pwnfps_trace_parity(
         const void* rsq_tab, const void* rcp_tab, int n, int n_spheres,
         int k_bucket, int maxsteps, int reflect, int n_pages,
         int sphere_page, int page0, int samples, float sec, float inv_mod,
-        float inv, void* out_fb, void* out_dist, void* stream) {
+        float inv, void* out_fb, void* out_dist, int width, void* queue,
+        void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -113,5 +120,26 @@ extern "C" int pwnfps_trace_parity(
     a.inv_mod = inv_mod;
     a.out_fb = (int32_t*)out_fb;
     a.out_dist = (float*)out_dist;
+    a.queue = (int*)queue;
+    set_tiles(a, width);
     return launch<true>(a, stream);
+}
+
+// What pwnfps_trace (parity 0) or pwnfps_trace_parity (parity 1) would
+// launch for n rays of an image `width` wide on the current device:
+// out i32 [4] gets the dynamic shared memory bytes a block, the resident
+// blocks an SM, the threads a block and the blocks.  Returns a CUDA error
+// code.
+extern "C" int pwnfps_trace_query(int parity, int n, int width,
+                                  int reflect, int n_pages, int samples,
+                                  int fused, void* out) {
+    Params a = {};
+    a.n = n;
+    a.reflect = reflect;
+    a.n_pages = n_pages;
+    a.samples = samples;
+    a.fused = fused;
+    a.query = (int*)out;
+    set_tiles(a, width);
+    return parity ? launch<true>(a, nullptr) : launch<false>(a, nullptr);
 }

@@ -68,17 +68,21 @@
 //     the base instance.  Each `if constexpr` on V compiles away in the
 //     other instances, so they keep their code.
 //
-// What bounds it on the H100: divergence and latency, not bandwidth.  A
-// ray's work is a data-dependent loop (a few steps for a wall hit, up to
-// the 1000-step budget for sky rays, per bounce), every step a dependent
-// gather from the cell table (16 KB a page; the 4-page maze's two tables
-// are 128 KB, which L1 and L2 hold), and ~40 scalars of march state plus
-// the unwind records live in registers.  So a warp runs as long as its
-// longest ray, and occupancy is set by the register count.  With samples
-// it lasts as long as its longest ray's S chains of up to reflect waves
-// each; the kept primary segment (the ~17 fields shade reads) adds
-// registers, where re-marching it per sample would add a primary march
-// per sample instead.
+// What bounds it on the H100: issue and latency, not bandwidth.  A ray's
+// work is a data-dependent loop (a few steps for a wall hit, up to the
+// 1000-step budget for sky rays, per bounce), every step a dependent
+// gather from the cell table, and ~40 scalars of march state live in
+// registers.  A warp runs as long as its longest ray's chain, and the
+// warps an SM keeps resident are set by the registers (92 in the fast
+// one-page instance).  The flagship's 1080p frame counts 4.56 G
+// operations, 0.07 ms at the card's FP32 rate: the kernel issues far more
+// instructions than that (the IEEE sqrtf and division sequences, selects,
+// the rare-event checks of every step) through warps whose lanes mask off
+// as their rays finish.  Tensor cores, wgmma and clusters have no work
+// here: a ray march has no matrix product.  With samples a ray runs S
+// chains of up to reflect waves; the kept primary segment (the ~17
+// fields shade reads) adds registers, where re-marching it per sample
+// would add a primary march per sample instead.
 //
 // Parity mode adds integer work: a 27-step restoring division and two
 // 25-step square roots per bucket slot a lane's ray hits, and table
@@ -86,17 +90,38 @@
 // memory, loaded once per block: their index is data dependent, so
 // __constant__ memory would serialise a warp's lookups.
 //
-// Design, kept simple: one thread per ray over the flat [n] ray list
-// (row-major pixels on the main path), 128 threads a block.  The TPU
-// kernel's tile-uniform branches (lax.cond on any-lane flags, the
-// whole-tile sphere-hoist gate, the while loop's any-active test) become
-// per-thread branches: every such branch body is per-lane masked and a
-// dead lane is frozen, so a thread that takes a branch when its own event
-// bit is set computes the same bits.  The sphere records sit in shared
-// memory; the cell tables are read through the read-only cache.  Each
-// thread marches its own bounce chain to the end and unwinds it backward
-// (tracer_core.py:1795-1801).  Warp-coherent scheduling, ray compaction
-// and shared-memory cell tables are later work.
+// Design.  Each thread traces one ray to the end of its chain and unwinds
+// it backward (tracer_core.py:1795-1801); the TPU kernel's tile-uniform
+// branches (lax.cond on any-lane flags, the whole-tile sphere-hoist gate,
+// the while loop's any-active test) are per-thread branches whose bodies
+// are per-lane masked, so a thread computes its own ray's bits.  Around
+// that, each step was timed on the 1080p flagship (tools/instance_times.py
+// run against copies of the package with one step undone; PERF.md has
+// the numbers):
+//   * warp tiles: each warp traces an 8x4-pixel tile of the image
+//     (tile_ray; set_tiles takes the width), not a 32x1 strip, so its
+//     rays share cells, walls, sphere hits and bounce counts: ~7% off the
+//     kernel's time, more than the step occupancy alone moves;
+//   * persistent warps: resident blocks whose warps take tiles off an
+//     atomic queue, which the last block to finish resets.  Slower on the
+//     one-chain fast instances, which launch a block for every 10 tiles;
+//     kept for parity (the SSE tables load once a resident block),
+//     samples and fused, whose long chains it balances;
+//   * fast mode's one-page cell tables (32 KB) in shared memory, copied
+//     by two TMA bulk copies completing on an mbarrier: fetch becomes a
+//     shared load.  Paged worlds keep the read-only cache, and so does
+//     parity, where the tables would leave room for one block an SM;
+//   * the unwind records in shared memory, [wave][record][thread], where
+//     no run-time index sends them to local memory: the stack falls from
+//     224 to 32 bytes, which are the device sinf/cosf's buffer for their
+//     large-argument reduction (the nowater instance, which calls
+//     neither, and the parity ones have none);
+//   * 320-thread blocks, two an SM: 20 warps at 92 registers with no
+//     spill, the fastest budget without one (24 warps at 80 registers
+//     spill 28 bytes).  The fused loop keeps 128-thread blocks and its
+//     116 registers (Block<F>): capped at 96 it spilled and ran slower
+//     on the portal chain and at 320x180.
+// Sphere records sit in shared memory in every instance.
 //
 // Numerics: build with --fmad=false, -prec-div=true, -prec-sqrt=true and
 // -ftz=false (_build.py) so a*b+c rounds twice, as on the TPU and in
@@ -110,6 +135,10 @@
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
+
+
+// the block's dynamic shared memory (its layout: off_sph .. off_rec)
+extern __shared__ __align__(128) uint32_t smem[];
 
 namespace {
 
@@ -142,7 +171,21 @@ constexpr int SX = 0, SY = 1, SZ = 2, SR = 3, SREFL = 4, SCB = 5,
               SBX1 = 8, SBX2 = 9, SBZ1 = 10, SBZ2 = 11, SRAD2 = 12,
               SINVR2 = 13;
 constexpr int MAX_WAVES = 8;
-constexpr int BLOCK = 128;
+constexpr int WARP = 32;
+// Threads a block and the blocks an SM that __launch_bounds__ keeps
+// resident: 320 x 2, 20 warps at 96 registers or fewer.  The fused loop
+// keeps its earlier 128 x 1 (116 registers, no spill), which measured
+// faster for it on the 720p portal chain and at 320x180 (PERF.md).
+template <bool F>
+struct Block {
+    static constexpr int threads = F ? 128 : 320;
+    static constexpr int min_blocks = F ? 1 : 2;
+    static constexpr int warps = threads / WARP;
+};
+constexpr int BLOCK = Block<false>::threads;   // the unwind records' stride
+constexpr int TILE_W = 8, TILE_H = 4;  // a warp's pixel tile
+constexpr int CELLS = 4096;            // the cells of a page
+constexpr int REC = 6;                 // unwind floats a wave
 // SSE emulation tables (core/approx.py): rsqrt [2 * 4096], rcp [4096]
 constexpr int RSQ_N = 8192, RCP_N = 4096, APPROX_BLOCK = 11;
 
@@ -196,9 +239,21 @@ __device__ __forceinline__ int flat_index(int cx, int cz, int page) {
     return (inb ? cz * 64 + cx : 0) + page * 4096;
 }
 
+// A cell's compact entry (fetch) and full channel word (fetch_word).  T:
+// a one-page world's tables sit in shared memory (the block's prologue
+// copies them there); else they are read through the read-only cache.
+template <bool T>
 __device__ __forceinline__ int fetch(const World& w, int cx, int cz,
                                      int page) {
-    return __ldg(w.ent + flat_index(cx, cz, page));
+    const int k = flat_index(cx, cz, page);
+    return T ? (int)smem[k] : __ldg(w.ent + k);
+}
+
+template <bool T>
+__device__ __forceinline__ int fetch_word(const World& w, int cx, int cz,
+                                          int page) {
+    const int k = flat_index(cx, cz, page);
+    return T ? (int)smem[CELLS + k] : __ldg(w.word + k);
 }
 
 // ---- parity math: bit-exact emulations (core/approx.py, core/ieee.py,
@@ -540,7 +595,7 @@ __device__ void sphere_pass(const World& w, Seg& s) {
 }
 
 // segment prologue (tracer_core._init_march + init_segment)
-template <bool P>
+template <bool P, bool T>
 __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
                              float fz, float irx, float iry, float irz,
                              bool active, int page) {
@@ -566,7 +621,7 @@ __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
     s.wy = (ry >= 0.0f ? 1.0f - fy : fy) * s.iy;
     s.wz = (rz >= 0.0f ? 1.0f - wdz : wdz) * s.iz;
     s.page = page;
-    s.ent = fetch(w, s.cx, s.cz, page);
+    s.ent = fetch<T>(w, s.cx, s.cz, page);
     s.px = fx;
     s.py = fy;
     s.pz = fz;
@@ -589,8 +644,8 @@ __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
 // One DDA step of an active lane (tracer_core.segment_body).  Fast mode
 // refreshes its hoisted candidates after line changes (has_sph: hoisted
 // candidates exist); parity mode scans the cell's sphere buckets.  V: the
-// measurement instance (VAR_*).
-template <bool P, int V = VAR_NONE>
+// measurement instance (VAR_*); T: as fetch.
+template <bool P, int V, bool T>
 __device__ void segment_body(const World& w, Seg& s) {
     const bool has_sph = !P && w.n_spheres > 0;
     const int cls = s.ent & 0xF;
@@ -623,7 +678,7 @@ __device__ void segment_body(const World& w, Seg& s) {
     bool nr = false;
     // fire1: the portal targets on every step; only pgo lanes read them
     if (V == VAR_FIRE1 || is_portal) {
-        const int pw = __ldg(w.word + flat_index(s.cx, s.cz, s.page));
+        const int pw = fetch_word<T>(w, s.cx, s.cz, s.page);
         // a one-page world's bits 26-29 count spheres, not a page
         if (w.n_pages > 1) dpage = (pw >> 26) & 0xF;
         pkind = (pw >> 4) & 3;
@@ -760,13 +815,13 @@ __device__ void segment_body(const World& w, Seg& s) {
     const bool pgo = a && is_portal && pkind == 1;
     int f_next = s.ent;
     if (stepped || pgo) {
-        f_next = pgo ? fetch(w, cx_f, cz_f, dpage)
-                     : fetch(w, cx2, cz2, s.page);
+        f_next = pgo ? fetch<T>(w, cx_f, cz_f, dpage)
+                     : fetch<T>(w, cx2, cz2, s.page);
         if constexpr (V == VAR_FETCH2X) {
             // a second fetch at a runtime-equal index (tracer_core.py:1082)
             const int dz = opq ? 0 : 1;
-            const int dup = pgo ? fetch(w, cx_f, cz_f + dz, dpage)
-                                : fetch(w, cx2, cz2 + dz, s.page);
+            const int dup = pgo ? fetch<T>(w, cx_f, cz_f + dz, dpage)
+                                : fetch<T>(w, cx2, cz2 + dz, s.page);
             f_next = opq ? f_next : dup;
         }
     }
@@ -1076,7 +1131,7 @@ __device__ __forceinline__ uint32_t pack_chan(float c, int shift) {
     return ((uint32_t)r) << shift;
 }
 
-// Kernel arguments (one struct, so both entry points share a launcher)
+// Kernel arguments (one struct, so every entry point shares a launcher)
 struct Params {
     const float *ox, *oy, *oz, *dx, *dy, *dz;
     const int32_t* seeds;
@@ -1096,27 +1151,89 @@ struct Params {
     int32_t* out_fb;
     float* out_dist;
     int32_t* out_tstep;       // VAR_PROFILE: [reflect + 1, n]
+    // the warps' work (set_tiles): n_tiles tiles of WARP rays, 8x4-pixel
+    // tiles of a [rows, width] image (tiles_x tiles a tile row), or runs
+    // of WARP consecutive rays when tiles_x is 0
+    int width, rows, tiles_x, n_tiles;
+    int* queue;               // [2] next tile, blocks done (0 after)
+    int* query;               // set: report the launch here, do not launch
 };
 
 // Weyl increment between the seed streams of two samples
 // (tracer_core.py:1810)
 constexpr uint32_t WEYL = 0x9E3779B9u;
 
-template <bool P>
-constexpr size_t smem_bytes() {
-    return sizeof(float) * NSPH_MAX * SPH_COLS
-        + (P ? sizeof(uint32_t) * (RSQ_N + RCP_N) : 0);
+// Offsets in 4-byte words into the dynamic shared memory, in order: (T)
+// the one-page cell tables ent and word, the sphere records, (P) the SSE
+// tables, then (unless F) the unwind records, REC floats a wave for each
+// of the block's threads, [wave][record][thread].
+template <bool T>
+__host__ __device__ constexpr int off_sph() {
+    return T ? 2 * CELLS : 0;
+}
+template <bool T>
+__host__ __device__ constexpr int off_rsq() {
+    return off_sph<T>() + NSPH_MAX * SPH_COLS;
+}
+template <bool P, bool T>
+__host__ __device__ constexpr int off_rec() {
+    return off_rsq<T>() + (P ? RSQ_N + RCP_N : 0);
+}
+template <bool P, bool F, bool T>
+__host__ __device__ constexpr size_t smem_bytes(int n_waves) {
+    return sizeof(uint32_t)
+        * (off_rec<P, T>() + (F ? 0 : n_waves * REC * BLOCK));
+}
+
+// ---- the tables' bulk copy: one TMA transfer a table, completing on an
+// mbarrier in shared memory ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once, expecting `bytes` of transfers
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// global -> shared, `bytes` a multiple of 16 from 16-byte aligned addresses
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                 "complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
+                    "r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the barrier's phase `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+                     "%2;\n\t"
+                     "selp.u32 %0, 1, 0, p;\n\t}\n"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
+                     : "memory");
+    }
 }
 
 // Start a segment from origin (fx, fy, fz) along (rx, ry, rz) on `page`:
 // its marching state and, in fast mode, its line's sphere candidates
 // (tracer_core.run_segment's prologue)
-template <bool P>
+template <bool P, bool T>
 __device__ __forceinline__ void start(const World& w, const Params& a,
                                       Seg& s, float fx, float fy, float fz,
                                       float rx, float ry, float rz,
                                       int page) {
-    init_segment<P>(w, s, fx, fy, fz, rx, ry, rz, true, page);
+    init_segment<P, T>(w, s, fx, fy, fz, rx, ry, rz, true, page);
     if (!P && a.n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
 }
 
@@ -1124,15 +1241,15 @@ __device__ __forceinline__ void start(const World& w, const Params& a,
 // (tracer_core.run_segment).  VAR_PROFILE returns the terminal step count
 // (tracer_core.py:1436-1456): step + 1 on the step the ray died, maxsteps
 // if the budget ran out; the other instances return 0.
-template <bool P, int V = VAR_NONE>
+template <bool P, int V, bool T>
 __device__ __forceinline__ int march(const World& w, const Params& a,
                                      Seg& s, float fx, float fy, float fz,
                                      float rx, float ry, float rz,
                                      int page) {
-    start<P>(w, a, s, fx, fy, fz, rx, ry, rz, page);
+    start<P, T>(w, a, s, fx, fy, fz, rx, ry, rz, page);
     int tstep = 0;
     for (int step = 0; step < a.maxsteps && s.active; ++step) {
-        segment_body<P, V>(w, s);
+        segment_body<P, V, T>(w, s);
         if constexpr (V == VAR_PROFILE) {
             if (!s.active) tstep = step + 1;
         }
@@ -1148,31 +1265,35 @@ __device__ __forceinline__ int march(const World& w, const Params& a,
 // shade the finished primary segment s0 with this chain's seed, march
 // waves 1..reflect (each on the page where the wave before it ended)
 // until a wave does not bounce, then unwind the blend backward into col.
+// Wave k's shaded colour, reflectance and fog go to rec[(k * REC + c) *
+// BLOCK], the thread's column of the block's unwind records in shared
+// memory, where no run-time index sends them to local memory.
 // VAR_PROFILE: ts[k] gets wave k's terminal step count (k >= 1).
-template <bool P, int V = VAR_NONE>
+template <bool P, int V, bool T>
 __device__ __forceinline__ void chain(const World& w, const Params& a,
                                       const Seg& s0, uint32_t seed,
-                                      float col[4], int* ts = nullptr) {
+                                      float col[4], float* rec,
+                                      int* ts = nullptr) {
     float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-    float base[MAX_WAVES][4], refl[MAX_WAVES], fog[MAX_WAVES];
     float fx, fy, fz, rx, ry, rz;
     const int n_waves = a.reflect + 1;
     int last = 0;
     Seg s = s0;
     for (int k = 0; k < n_waves; ++k) {
         if (k > 0) {
-            const int t = march<P, V>(w, a, s, fx, fy, fz, rx, ry, rz,
-                                      s.page);
+            const int t = march<P, V, T>(w, a, s, fx, fy, fz, rx, ry, rz,
+                                         s.page);
             if constexpr (V == VAR_PROFILE) ts[k] = t;
         }
         const Shade o = shade<P, V>(w, s, icol, seed, a.sec, k < a.reflect,
                                     a.inv_mod, fx, fy, fz, rx, ry, rz);
-        base[k][0] = o.b;
-        base[k][1] = o.g;
-        base[k][2] = o.r;
-        base[k][3] = o.a;
-        refl[k] = o.refl;
-        fog[k] = o.fog;
+        float* r = rec + k * REC * BLOCK;
+        r[0] = o.b;
+        r[BLOCK] = o.g;
+        r[2 * BLOCK] = o.r;
+        r[3 * BLOCK] = o.a;
+        r[4 * BLOCK] = o.refl;
+        r[5 * BLOCK] = o.fog;
         icol[0] = o.b;
         icol[1] = o.g;
         icol[2] = o.r;
@@ -1180,16 +1301,18 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
         last = k;
         if (!o.bounce) break;
     }
-    // backward unwind blend (tracer_core.py:1795-1801): every wave below
-    // `last` bounced
-    for (int c = 0; c < 4; ++c) col[c] = base[last][c];
+    // backward unwind blend (tracer_core.py:1795-1801) from the last
+    // wave's colour, which icol holds: every wave below `last` bounced
+    for (int c = 0; c < 4; ++c) col[c] = icol[c];
     for (int k = last - 1; k >= 0; --k) {
-        const float fogf = m_exp<P>(-0.6f * fog[k]);
+        const float* r = rec + k * REC * BLOCK;
+        const float refl = r[4 * BLOCK], fog = r[5 * BLOCK];
+        const float fogf = m_exp<P>(-0.6f * fog);
         for (int c = 0; c < 4; ++c) {
-            const float blended = col[c] * refl[k]
-                + base[k][c] * (1.0f - refl[k]);
-            col[c] = fog[k] != 0.0f ? blended * fogf + (1.0f - fogf)
-                                    : blended;
+            const float blended = col[c] * refl
+                + r[c * BLOCK] * (1.0f - refl);
+            col[c] = fog != 0.0f ? blended * fogf + (1.0f - fogf)
+                                 : blended;
         }
     }
 }
@@ -1210,6 +1333,7 @@ struct Fused {
 
 // Shade the segment that s finished; finalize the colour or compose this
 // wave's blend into the affine and restart s on the bounce ray
+template <bool T>
 __device__ __forceinline__ void fused_death(const World& w, const Params& a,
                                             Seg& s, Fused& f) {
     float fx, fy, fz, rx, ry, rz;
@@ -1237,16 +1361,17 @@ __device__ __forceinline__ void fused_death(const World& w, const Params& a,
         f.icol[c] = base[c];
     }
     f.acc_b = f.acc_b * bb;
-    start<false>(w, a, s, fx, fy, fz, rx, ry, rz, s.page);
+    start<false, T>(w, a, s, fx, fy, fz, rx, ry, rz, s.page);
     ++f.wave;
 }
 
+template <bool T>
 __device__ __forceinline__ void fused(const World& w, const Params& a,
                                       float fx, float fy, float fz,
                                       float rx, float ry, float rz,
                                       Fused& f) {
     Seg s;
-    start<false>(w, a, s, fx, fy, fz, rx, ry, rz, a.page0);
+    start<false, T>(w, a, s, fx, fy, fz, rx, ry, rz, a.page0);
     const int n_waves = a.reflect + 1;
     const int chunk = max(a.step_chunk, 1);
     const int cap = a.maxsteps * n_waves + 8 * n_waves;
@@ -1255,12 +1380,12 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
     bool dead = false;
     for (int it = 0; it < n_it; ++it) {
         if (dead) {
-            fused_death(w, a, s, f);
+            fused_death<T>(w, a, s, f);
             dead = false;
             segsteps = 0;
         }
         if (f.done) break;
-        segment_body<false>(w, s);
+        segment_body<false, VAR_NONE, T>(w, s);
         ++segsteps;
         // the per-segment step budget -> sky (trace.h:247,678)
         if (s.active && segsteps >= a.maxsteps) {
@@ -1269,34 +1394,116 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
         }
         dead = !s.active;
     }
-    if (dead) fused_death(w, a, s, f);   // the drain: never stepped
+    if (dead) fused_death<T>(w, a, s, f);   // the drain: never stepped
 }
 
-// S: a.samples > 1.  The primary wave consumes no RNG, so it is marched
-// once and kept (the fields shade reads stay in registers); each sample k
-// runs its chain from it with seed + k*WEYL, the chains' colours are
-// summed in sample order ((c0 + c1) + c2) + ..., and the sum is scaled by
-// the host's f32(1 / samples) before the pack (tracer_core.py:1804-1817).
+// Trace ray i and write its packed colour and primary distance.  S:
+// a.samples > 1.  The primary wave consumes no RNG, so it is marched once
+// and kept (the fields shade reads stay in registers); each sample k runs
+// its chain from it with seed + k*WEYL, the chains' colours are summed in
+// sample order ((c0 + c1) + c2) + ..., and the sum is scaled by the
+// host's f32(1 / samples) before the pack (tracer_core.py:1804-1817).
 // S = false is the one-chain trace.  F: the fused wave loop (P = S =
 // false).  V: a measurement instance (VAR_*; P = S = F = false).
-template <bool P, bool S, bool F, int V = VAR_NONE>
-__global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
-    // shared memory: the sphere records, then (parity) the SSE tables
-    extern __shared__ uint32_t smem[];
-    float* sph = reinterpret_cast<float*>(smem);
-    uint32_t* rsq = smem + NSPH_MAX * SPH_COLS;
+template <bool P, bool S, bool F, int V, bool T>
+__device__ __forceinline__ void trace_ray(const World& w, const Params& a,
+                                          int i, float* rec) {
+    const uint32_t seed = (uint32_t)a.seeds[i];
+    float col[4], dist0;
+    if constexpr (F) {
+        Fused f;
+        f.seed = seed;
+        fused<T>(w, a, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i],
+                 f);
+        for (int j = 0; j < 4; ++j) col[j] = f.col[j];
+        dist0 = f.dist0;
+    } else {
+        Seg s;
+        int ts[V == VAR_PROFILE ? MAX_WAVES : 1] = {};
+        ts[0] = march<P, V, T>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
+                               a.dy[i], a.dz[i], a.page0);
+        dist0 = s.cdist;
+        for (int k = 0; k < (S ? a.samples : 1); ++k) {
+            float c[4];
+            chain<P, V, T>(w, a, s, seed + (uint32_t)k * WEYL, c, rec, ts);
+            for (int j = 0; j < 4; ++j)
+                col[j] = k == 0 ? c[j] : col[j] + c[j];
+        }
+        if (S) {
+            for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
+        }
+        if constexpr (V == VAR_PROFILE) {
+            for (int k = 0; k <= a.reflect; ++k)
+                a.out_tstep[(size_t)k * a.n + i] = ts[k];
+        }
+    }
+    a.out_dist[i] = dist0;
+    a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
+                            | pack_chan(col[2], 16)
+                            | pack_chan(col[3], 24));
+}
+
+// The ray that `lane` of the warp holding `tile` traces, or -1 (a masked
+// lane of a ragged tile, or a tile past the last).  ops/tracer.py:
+// warp_tiles is the same map.
+__device__ __forceinline__ int tile_ray(const Params& a, int tile,
+                                        int lane) {
+    if (tile >= a.n_tiles) return -1;
+    if (a.tiles_x == 0) {
+        const int i = tile * WARP + lane;
+        return i < a.n ? i : -1;
+    }
+    const int ty = tile / a.tiles_x;
+    const int x = (tile - ty * a.tiles_x) * TILE_W + lane % TILE_W;
+    const int y = ty * TILE_H + lane / TILE_W;
+    return x < a.width && y < a.rows ? y * a.width + x : -1;
+}
+
+// Persistent warps, which take tiles off a queue, for the instances whose
+// blocks load the SSE tables or whose rays run several chains or the
+// fused loop; one tile a warp, block b holding tiles b * warps ..
+// + warps - 1, for the one-chain fast instances.
+template <bool P, bool S, bool F>
+__host__ __device__ constexpr bool persistent() {
+    return P || S || F;
+}
+
+// lane 0 takes the next tile off the queue; every lane gets it
+__device__ __forceinline__ int take_tile(int* queue, int lane) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(queue, 1);
+    return __shfl_sync(0xffffffffu, tile, 0);
+}
+
+// The block's prologue loads what every ray reads: (T) the one-page cell
+// tables by two bulk copies, the sphere records and (P) the SSE tables.
+template <bool P, bool S, bool F, int V, bool T>
+__global__ void __launch_bounds__(Block<F>::threads, Block<F>::min_blocks)
+trace_kernel(const Params a) {
+    constexpr int threads = Block<F>::threads;
+    __shared__ uint64_t tables_ready;
+    float* sph = reinterpret_cast<float*>(smem + off_sph<T>());
+    uint32_t* rsq = smem + off_rsq<T>();
     uint32_t* rcp = rsq + RSQ_N;
-    for (int k = threadIdx.x; k < a.n_spheres * SPH_COLS; k += blockDim.x)
+    if constexpr (T) {
+        if (threadIdx.x == 0) {
+            mbar_init(&tables_ready);
+            mbar_expect(&tables_ready, 2 * CELLS * sizeof(int32_t));
+            bulk_load(smem, a.ent, CELLS * sizeof(int32_t), &tables_ready);
+            bulk_load(smem + CELLS, a.word, CELLS * sizeof(int32_t),
+                      &tables_ready);
+        }
+    }
+    for (int k = threadIdx.x; k < a.n_spheres * SPH_COLS; k += threads)
         sph[k] = a.sph[k];
     if (P) {
-        for (int k = threadIdx.x; k < RSQ_N; k += blockDim.x)
+        for (int k = threadIdx.x; k < RSQ_N; k += threads)
             rsq[k] = __ldg(a.rsq_tab + k);
-        for (int k = threadIdx.x; k < RCP_N; k += blockDim.x)
+        for (int k = threadIdx.x; k < RCP_N; k += threads)
             rcp[k] = __ldg(a.rcp_tab + k);
     }
-    __syncthreads();
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.n) return;
+    __syncthreads();     // also publishes the initialised barrier
+    if constexpr (T) mbar_wait(&tables_ready, 0);
 
     World w;
     w.ent = a.ent;
@@ -1321,53 +1528,110 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params a) {
         w.k_bucket = 0;
         w.rsq_tab = w.rcp_tab = nullptr;
     }
-
-    const uint32_t seed = (uint32_t)a.seeds[i];
-    float col[4], dist0;
-    if constexpr (F) {
-        Fused f;
-        f.seed = seed;
-        fused(w, a, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], f);
-        for (int j = 0; j < 4; ++j) col[j] = f.col[j];
-        dist0 = f.dist0;
+    float* rec = reinterpret_cast<float*>(smem + off_rec<P, T>())
+        + threadIdx.x;
+    const int lane = threadIdx.x % WARP;
+    if constexpr (persistent<P, S, F>()) {
+        for (int tile = take_tile(a.queue, lane); tile < a.n_tiles;
+             tile = take_tile(a.queue, lane)) {
+            const int i = tile_ray(a, tile, lane);
+            if (i >= 0) trace_ray<P, S, F, V, T>(w, a, i, rec);
+        }
+        // the last block to finish resets the queue for the next launch:
+        // every other warp has taken its last tile by then
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            __threadfence();
+            if (atomicAdd(a.queue + 1, 1) == (int)gridDim.x - 1) {
+                atomicExch(a.queue, 0);
+                atomicExch(a.queue + 1, 0);
+            }
+        }
     } else {
-        Seg s;
-        int ts[MAX_WAVES] = {};
-        ts[0] = march<P, V>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
-                            a.dy[i], a.dz[i], a.page0);
-        dist0 = s.cdist;
-        for (int k = 0; k < (S ? a.samples : 1); ++k) {
-            float c[4];
-            chain<P, V>(w, a, s, seed + (uint32_t)k * WEYL, c, ts);
-            for (int j = 0; j < 4; ++j)
-                col[j] = k == 0 ? c[j] : col[j] + c[j];
-        }
-        if (S) {
-            for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
-        }
-        if constexpr (V == VAR_PROFILE) {
-            for (int k = 0; k <= a.reflect; ++k)
-                a.out_tstep[(size_t)k * a.n + i] = ts[k];
-        }
+        const int i = tile_ray(
+            a, blockIdx.x * Block<F>::warps + threadIdx.x / WARP, lane);
+        if (i >= 0) trace_ray<P, S, F, V, T>(w, a, i, rec);
     }
-    a.out_dist[i] = dist0;
-    a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
-                            | pack_chan(col[2], 16)
-                            | pack_chan(col[3], 24));
 }
 
+// The warps' work for n rays of an image `width` wide (0: not an image):
+// 8x4-pixel tiles where width divides n, else runs of WARP rays.
+__host__ inline void set_tiles(Params& a, int width) {
+    const bool image = width > 0 && a.n % width == 0;
+    a.width = image ? width : 0;
+    a.rows = image ? a.n / width : 0;
+    a.tiles_x = image ? (width + TILE_W - 1) / TILE_W : 0;
+    a.n_tiles = image ? a.tiles_x * ((a.rows + TILE_H - 1) / TILE_H)
+                      : (a.n + WARP - 1) / WARP;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Launch instance <P, S, F, V, T>: a block for every warps tiles, or, for
+// the persistent instances, as many blocks as stay resident (the
+// occupancy calculator's blocks an SM, computed once a device and wave
+// count, times the SMs) when there are more tiles.  With a.query set,
+// write there what the launch takes - dynamic shared memory bytes a
+// block, resident blocks an SM, threads a block, blocks - and do not
+// launch.
+template <bool P, bool S, bool F, int V, bool T>
+int launch_tiles(const Params& a, void* stream) {
+    // the dynamic shared memory each device allows this instance so far,
+    // and its resident blocks an SM by wave count
+    static int allowed[MAX_DEVICES];
+    static int per_sm[MAX_DEVICES][MAX_WAVES + 1];
+    static int sms[MAX_DEVICES];
+    const auto kernel = trace_kernel<P, S, F, V, T>;
+    constexpr int threads = Block<F>::threads, warps = Block<F>::warps;
+    const int n_waves = a.reflect + 1;
+    const int smem = (int)smem_bytes<P, F, T>(n_waves);
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (smem > 48 * 1024 && smem > allowed[dev]) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        allowed[dev] = smem;
+    }
+    if (per_sm[dev][n_waves] == 0) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm[dev][n_waves], kernel, threads, smem);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(
+                &sms[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return (int)err;
+        if (per_sm[dev][n_waves] <= 0)
+            return (int)cudaErrorInvalidConfiguration;
+    }
+    int grid = (a.n_tiles + warps - 1) / warps;
+    if (persistent<P, S, F>() && grid > per_sm[dev][n_waves] * sms[dev])
+        grid = per_sm[dev][n_waves] * sms[dev];
+    if (a.query) {
+        a.query[0] = smem;
+        a.query[1] = per_sm[dev][n_waves];
+        a.query[2] = threads;
+        a.query[3] = grid;
+        return 0;
+    }
+    if (persistent<P, S, F>() && a.queue == nullptr)
+        return (int)cudaErrorInvalidValue;
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// Fast mode on a one-page world takes the instance with its cell tables
+// in shared memory, whose pointers must then be 16-byte aligned (bulk
+// copy).  Parity mode keeps them in the read-only cache: beside its SSE
+// tables and the unwind records they would leave room for one block an
+// SM.
 template <bool P, bool S, bool F = false, int V = VAR_NONE>
 int launch_instance(const Params& a, void* stream) {
-    constexpr size_t smem = smem_bytes<P>();
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            trace_kernel<P, S, F, V>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const int grid = (a.n + BLOCK - 1) / BLOCK;
-    trace_kernel<P, S, F, V><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    if (P || a.n_pages > 1) return launch_tiles<P, S, F, V, false>(a, stream);
+    if (((uintptr_t)a.ent | (uintptr_t)a.word) % 16 != 0)
+        return (int)cudaErrorMisalignedAddress;
+    return launch_tiles<P, S, F, V, true>(a, stream);
 }
 
 // The parameter checks of every entry point: out of range or a combination

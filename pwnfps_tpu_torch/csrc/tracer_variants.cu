@@ -21,8 +21,9 @@ int launch_variant(const Params& a, void* stream) {
 // 8 bool128, 9 int128, 10 cmp64).  Inputs and outputs as pwnfps_trace
 // with one sample and no fused loop; the profile instance also writes
 // out_tstep i32 [reflect + 1, n], each wave's terminal step count a ray
-// (0 for a wave its chain did not reach); the others ignore it.  Launches
-// on `stream`; returns cudaGetLastError().
+// (0 for a wave its chain did not reach); the others ignore it.  width
+// as pwnfps_trace's.  Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int pwnfps_trace_variant(
         const void* ox, const void* oy, const void* oz, const void* dx,
         const void* dy, const void* dz, const void* seeds, const void* ent,
@@ -30,7 +31,7 @@ extern "C" int pwnfps_trace_variant(
         int n_spheres, int maxsteps, int reflect, int skip, int n_pages,
         int sphere_page, int page0, int variant, float sec, float slack,
         float inv_mod, void* out_fb, void* out_dist, void* out_tstep,
-        void* stream) {
+        int width, void* stream) {
     Params a = {};
     a.ox = (const float*)ox;
     a.oy = (const float*)oy;
@@ -59,6 +60,7 @@ extern "C" int pwnfps_trace_variant(
     a.out_fb = (int32_t*)out_fb;
     a.out_dist = (float*)out_dist;
     a.out_tstep = (int32_t*)out_tstep;
+    set_tiles(a, width);
     if (bad_params(a, false) || (variant == VAR_PROFILE && !out_tstep))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaGetLastError();

@@ -18,6 +18,14 @@ fast mode, one sample, unfused, one page or paged) launch entry
 `pwnfps_trace_variant` of csrc/tracer_variants.cu, one instance of the
 same template each.  `trace_wave_profile` returns the profile instance's
 per-wave terminal step counts beside the frame.
+
+Each warp of every instance traces a tile of 32 rays: 8x4 pixels of
+the row-major image `cfg.width` wide that the rays are taken to be
+(where the width divides n), else 32 consecutive rays.  `warp_tiles`
+is the kernel's map from a warp's tile to its rays; no output depends
+on it.  The parity, samples and fused
+instances run persistent warps that take tiles off a queue: a two-word
+scratch tensor a (device, stream) pair, which each launch leaves zero.
 """
 
 from __future__ import annotations
@@ -58,13 +66,64 @@ VARIANTS = {name: k for k, name in enumerate(("nowater", "profile")
                                              + PROBES, 1)}
 LAUNCHES_VARIANT = dict.fromkeys(VARIANTS, 0)
 # C entry points of csrc/tracer.cu and csrc/tracer_variants.cu
+_TAIL = [ctypes.c_int, ctypes.c_void_p]     # width, stream
+_QTAIL = [ctypes.c_int] + [ctypes.c_void_p] * 2    # width, queue, stream
 _SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
-         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3,
+         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2 + _QTAIL,
          "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3}
+         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2 + _QTAIL,
+         "pwnfps_trace_query": [ctypes.c_int] * 7 + [ctypes.c_void_p]}
 _SIGS_VARIANTS = {"pwnfps_trace_variant": [ctypes.c_void_p] * 11
                   + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                  + [ctypes.c_void_p] * 4}
+                  + [ctypes.c_void_p] * 3 + _TAIL}
+# a warp's tile: 8 x 4 pixels, one ray a lane (csrc/tracer_body.cuh)
+WARP, TILE_W, TILE_H = 32, 8, 4
+# the tile queue of each (device index, stream handle)
+_QUEUES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def warp_tiles(n: int, width: int | None = None) -> np.ndarray:
+    """The kernel's warps: [n_tiles, 32] int64, the ray each lane of
+    each tile traces, -1 for a masked lane (csrc/tracer_body.cuh
+    tile_ray).  For n rays of a row-major image `width` wide (width
+    divides n) the tiles are 8x4 pixels, row-major, the last row and
+    column of tiles ragged; else runs of 32 consecutive rays."""
+    if not width or n % width:
+        idx = np.arange(-(-n // WARP) * WARP)
+        return np.where(idx < n, idx, -1).reshape(-1, WARP)
+    rows = n // width
+    tiles_x = -(-width // TILE_W)
+    tile = np.arange(tiles_x * -(-rows // TILE_H))[:, None]
+    lane = np.arange(WARP)[None, :]
+    x = tile % tiles_x * TILE_W + lane % TILE_W
+    y = tile // tiles_x * TILE_H + lane // TILE_W
+    return np.where((x < width) & (y < rows), y * width + x, -1)
+
+
+def _queue(dev: torch.device, stream: int) -> torch.Tensor:
+    q = _QUEUES.get((dev.index, stream))
+    if q is None:
+        q = _QUEUES[(dev.index, stream)] = torch.zeros(
+            2, dtype=torch.int32, device=dev)
+    return q
+
+
+def launch_shape(cfg: RenderConfig, n: int, width: int | None,
+                 n_pages: int, device) -> dict:
+    """What the rendering instance cfg selects takes on `device` for n
+    rays: dynamic shared memory bytes a block, resident blocks an SM,
+    threads a block and the blocks of the launch (pwnfps_trace_query)."""
+    lib = _build.load("tracer", _SIGS)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = lib.pwnfps_trace_query(
+            int(cfg.parity), n, width or 0, cfg.reflect, n_pages,
+            cfg.samples, int(cfg.fused and not cfg.parity),
+            ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"trace kernel query failed: CUDA error {err}")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "threads", "blocks"),
+                    out))
 
 
 def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
@@ -112,9 +171,10 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
 
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
-            seed: torch.Tensor, sec, page0: int):
-    """Launch the instance cfg selects.  Returns (fb, dist, tstep): tstep
-    int32 [n_waves, n] from the profile instance, else None."""
+            seed: torch.Tensor, sec, page0: int, width: int | None = None):
+    """Launch the instance cfg selects; width: as trace_wave's.  Returns
+    (fb, dist, tstep): tstep int32 [n_waves, n] from the profile
+    instance, else None."""
     global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
         LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED
     n = ifrom.x.shape[0]
@@ -126,6 +186,9 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     dist = torch.empty(n, dtype=torch.float32, device=dev)
     tstep = None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    width = cfg.width if width is None else width
+    tail = (width, stream)
+    qtail = (width, _queue(dev, stream).data_ptr(), stream)
     inv = float(np.float32(1.0 / cfg.samples))
     fused = cfg.fused and not cfg.parity
     var = variant(cfg)
@@ -143,7 +206,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 wt.sphere_page, page0, VARIANTS[var],
                 float(np.float32(sec)), float(np.float32(wt.slack)),
                 lcg.INV_MOD_F, fb.data_ptr(), dist.data_ptr(),
-                tstep.data_ptr() if tstep is not None else None, stream)
+                tstep.data_ptr() if tstep is not None else None, *tail)
         if err != 0:
             raise RuntimeError(f"trace kernel ({var}) launch failed: CUDA "
                                f"error {err}")
@@ -159,7 +222,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
                 wt.n_pages, wt.sphere_page, page0, cfg.samples,
                 float(np.float32(sec)), lcg.INV_MOD_F, inv,
-                fb.data_ptr(), dist.data_ptr(), stream)
+                fb.data_ptr(), dist.data_ptr(), *qtail)
         else:
             err = lib.pwnfps_trace(
                 *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
@@ -169,7 +232,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                 wt.sphere_page, page0, cfg.samples, int(fused),
                 max(1, cfg.step_chunk), float(np.float32(sec)),
                 float(np.float32(wt.slack)), lcg.INV_MOD_F, inv,
-                fb.data_ptr(), dist.data_ptr(), stream)
+                fb.data_ptr(), dist.data_ptr(), *qtail)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
     if cfg.parity and wt.n_pages > 1:
@@ -190,11 +253,16 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
 
 
 def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
-               seed: torch.Tensor, sec, pack: bool = False, page0: int = 0):
+               seed: torch.Tensor, sec, pack: bool = False, page0: int = 0,
+               width: int | None = None):
     """Full multi-bounce trace of n rays, each starting on page `page0`,
     averaged over cfg.samples bounce chains.  Returns (C4 of [n], dist
     [n]), or (fb int32 [n] BGRA bits, dist [n]) with pack=True.  The
-    kernel writes packed BGRA only, so CUDA tensors need pack=True."""
+    kernel writes packed BGRA only, so CUDA tensors need pack=True.
+    width: the rays are a row-major image (or stacked images) this wide,
+    which the kernel's warps take in 8x4-pixel tiles, by default
+    cfg.width; 0 for rays that are no image (32 consecutive rays a
+    warp).  The results do not depend on it."""
     check_config(cfg)
     if cfg.samples < 1:
         raise ValueError(f"samples={cfg.samples}: need at least one")
@@ -208,7 +276,7 @@ def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     if not pack:
         raise NotImplementedError("the trace kernel writes packed BGRA "
                                   "only: pass pack=True")
-    return _launch(wt, cfg, ifrom, iray, seed, sec, page0)[:2]
+    return _launch(wt, cfg, ifrom, iray, seed, sec, page0, width)[:2]
 
 
 def trace_wave_profile(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,

@@ -360,9 +360,10 @@ def _band_rows(cfg: RenderConfig, n_bands: int) -> int:
 def _trace_band(tw: TorchWorld, cfg: RenderConfig, fv: V3, rv: V3, seeds,
                 sec, hw):
     """One trace launch on a band's device -> (fb, zbuf) of shape hw
-    (sharding.py:552-565)."""
+    (sharding.py:552-565); the warps take 8x4-pixel tiles of a band's
+    rows, and runs of rays of a flat slice (hw of one dimension)."""
     fb, zb = trace_wave(tw, cfg, fv, rv, seeds, sec, pack=True,
-                        page0=cfg.cam_page)
+                        page0=cfg.cam_page, width=None if len(hw) > 1 else 0)
     return fb.reshape(hw), zb.reshape(hw)
 
 

@@ -4,15 +4,17 @@ the jnp backend's `tstep`).
 
 Traces a scene's frame with the profile instance
 (`ops.tracer.trace_wave_profile`: each ray's terminal DDA step count in
-each bounce wave) and groups the lanes three ways:
+each bounce wave) and groups the lanes four ways:
 
   * `tile`: the TPU kernel's (64, 128)-pixel tiles of 8192 lanes, with
     each tile's maximum rounded up to `step_chunk` (the while loop tests
     at chunk boundaries), so that the numbers compare with the JAX tool's;
-  * `warp`: 32 consecutive threads of the CUDA kernel's flat launch
-    order, which run in lockstep: a warp steps as long as its longest
-    ray, one cell a step, with no chunk rounding;
-  * `block`: the kernel's blocks of `BLOCK` threads.
+  * `warp_tile`: the CUDA kernel's warps, each an 8x4-pixel tile
+    (`ops.tracer.warp_tiles`), which run in lockstep: a warp steps as
+    long as its longest ray, one cell a step, with no chunk rounding;
+  * `warp`: 32 consecutive pixels of a row (32x1 strips), the warps of
+    the kernel's flat order, for comparison;
+  * `block`: `BLOCK` consecutive pixels, the blocks of that flat order.
 
 For each grouping and wave: the share of live lanes, the p50/p99/max of
 their step counts, `occupancy` = steps the lanes needed / steps their
@@ -54,7 +56,7 @@ SEC = 0.25
 TILE_LANES = 8192            # the TPU kernel's tile, 64 x 128 pixels
 BH, BW = 64, 128
 WARP = 32
-BLOCK = 128                  # threads a block of csrc/tracer_body.cuh
+BLOCK = 128                  # a block of the flat order
 # beside the built kernels, in the package's git-ignored _build/
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "_build", "occupancy.json")
@@ -74,6 +76,16 @@ def lockstep_ids(n: int, size: int) -> tuple[np.ndarray, np.ndarray]:
     groups of `size` consecutive threads; the last group may be short."""
     ids = np.arange(n) // size
     return ids, np.bincount(ids)
+
+
+def warp_tile_ids(h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """(the kernel's warp of each of the h*w pixels, live lanes a warp)
+    for its 8x4-pixel tiles."""
+    tiles = tracer.warp_tiles(h * w, w)
+    ids = np.empty(h * w, np.int64)
+    live = tiles >= 0
+    ids[tiles[live]] = np.nonzero(live)[0]
+    return ids, live.sum(axis=1)
 
 
 def wave_stats(tstep: np.ndarray, ids: np.ndarray, lanes, chunk: int = 1):
@@ -119,10 +131,12 @@ def wave_stats(tstep: np.ndarray, ids: np.ndarray, lanes, chunk: int = 1):
 
 
 def all_stats(tstep: np.ndarray, h: int, w: int, chunk: int) -> dict:
-    """wave_stats over the TPU tiles, the warps and the blocks."""
+    """wave_stats over the TPU tiles, the kernel's warps (8x4 tiles),
+    the 32x1 strips and the blocks of the flat order."""
     out = {}
     for name, (ids, lanes, ch) in (
             ("tile", (tile_ids(h, w), TILE_LANES, chunk)),
+            ("warp_tile", (*warp_tile_ids(h, w), 1)),
             ("warp", (*lockstep_ids(h * w, WARP), 1)),
             ("block", (*lockstep_ids(h * w, BLOCK), 1))):
         waves, summary = wave_stats(tstep, ids, lanes, ch)

@@ -26,14 +26,21 @@ versions.  Phases 15-16, small: the fused instance equals the plain
 fused loop (flagship, portal chain, paged maze) and its zbuf the unfused
 kernel's; the parity instances on the paged maze equal the plain parity
 tracer on the card (and on the host), and the parity frame of the chain
-on three pages equals the one-page chain's, kernel against kernel."""
+on three pages equals the one-page chain's, kernel against kernel.
+Each warp of the tracer takes an 8x4-pixel tile: every rendering
+instance equals the plain tracer at ragged shapes (and where the width
+does not divide n, in the flat order), as do two launches in a row and
+launches on two streams at once; the fast instances keep no unwind
+record on the stack and spill nothing."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from pwnfps_tpu_torch import _build
 from pwnfps_tpu_torch.ops import blur, probes, tracer
 from pwnfps_tpu_torch.ops.vec import V3
 from pwnfps_tpu_torch.parallel.sharding import (_halo, camera_rays,
@@ -549,3 +556,115 @@ def test_game_session_on_the_card(dev, parity):
                                         sess.sec, pack=True)
     assert torch.equal(fb_k, fb_p)
     assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+def _instance_scene(instance, w, h, dev):
+    """The scene whose frame takes rendering instance `instance`."""
+    if instance == "fast":
+        return flagship_scene(w, h, dev)
+    if instance == "fused":
+        return flagship_scene(w, h, dev, fused=True)
+    if instance == "samples":
+        return ptrace_scene(w, h, dev, samples=2)
+    if instance == "parity":
+        return parity_scene(w, h, dev)
+    if instance == "parity_samples":
+        return parity_scene(w, h, dev, samples=2)
+    sc = maze_scene(w, h, dev, parity=instance == "paged_parity")
+    sc.cam = portal_camera(sc)
+    return sc
+
+
+@pytest.mark.parametrize("w,h,width", [(33, 17, None), (7, 5, None),
+                                       (1, 1, None), (33, 17, 34)])
+@pytest.mark.parametrize("instance", ["fast", "paged", "samples", "fused",
+                                      "parity", "parity_samples",
+                                      "paged_parity"])
+def test_instances_at_ragged_shapes(dev, instance, w, h, width):
+    """Each rendering instance on ragged 8x4 tiles of the w-wide image
+    (33x17: the last tile column has one pixel, the last tile row one
+    row; 7x5; one ray) and, where the width does not divide n (34 for
+    561 rays), in runs of 32 rays: bit-equal to the plain tracer."""
+    sc = _instance_scene(instance, w, h, dev)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    page0 = sc.cfg.cam_page
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0, width=width)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("instance", ["fast", "samples", "fused", "parity"])
+def test_two_launches_and_two_streams(dev, instance):
+    """Two launches in a row on one stream, then one on each of two
+    streams at once, of each instance at 480x288: 4,320 tiles, more
+    than the persistent instances keep warps resident, so their warps
+    take tiles off the queue, which each launch must leave reset and
+    which two streams must not share.  Each equals the plain trace."""
+    sc = _instance_scene(instance, 480, 288, dev)
+    n = 480 * 288
+    n_tiles = len(tracer.warp_tiles(n, 480))
+    shape = tracer.launch_shape(sc.cfg, n, 480, sc.tworld.n_pages, dev)
+    warps = shape["blocks"] * shape["threads"] // tracer.WARP
+    if instance == "fast":
+        assert warps >= n_tiles, shape
+    else:
+        assert warps < n_tiles, (shape, n_tiles)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+
+    def trace():
+        return tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds, sec,
+                                 pack=True)
+    outs = [trace(), trace()]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(trace())
+    torch.cuda.synchronize()
+    for fb, z in outs:
+        assert torch.equal(fb, fb_p)
+        assert torch.equal(z.view(torch.int32), z_p.view(torch.int32))
+
+
+def _frame_line(log: str, tag: str) -> tuple:
+    """(stack frame, spill stores, spill loads) bytes of the kernel whose
+    mangled name holds tag, from the `-Xptxas -v` report."""
+    on = False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            on = tag in ln
+        elif on and "stack frame" in ln:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            return tuple(int(g) for g in m.groups())
+    raise AssertionError(f"no ptxas report for {tag}:\n{log}")
+
+
+def test_unwind_records_off_the_stack(dev):
+    """ptxas: the fast one-page instance (trace_kernel<false, false,
+    false, 0, true>) spills nothing and keeps at most the 32 bytes that
+    the device sinf/cosf reserve for their large-argument reduction, and
+    the nowater instance, which calls neither, no stack frame at all; the
+    fused instance, in its 128-thread blocks, spills nothing; the
+    flagship launch keeps 20 warps an SM resident."""
+    _build.load("tracer", tracer._SIGS)
+    _build.load("tracer_variants", tracer._SIGS_VARIANTS)
+    frame, st, ld = _frame_line(_build.PTXAS_LOG["tracer"],
+                                "ILb0ELb0ELb0ELi0ELb1EE")
+    assert frame <= 32 and st == ld == 0, (frame, st, ld)
+    fused = _frame_line(_build.PTXAS_LOG["tracer"], "ILb0ELb0ELb1ELi0ELb1EE")
+    assert fused[1:] == (0, 0), fused
+    fshape = tracer.launch_shape(flagship_scene(8, 8, dev, fused=True).cfg,
+                                 1920 * 1080, 1920, 1, dev)
+    assert fshape["threads"] == 128, fshape
+    nowater = _frame_line(_build.PTXAS_LOG["tracer_variants"],
+                          f"ILb0ELb0ELb0ELi{tracer.VARIANTS['nowater']}ELb1EE")
+    assert nowater == (0, 0, 0), nowater
+    shape = tracer.launch_shape(flagship_scene(8, 8, dev).cfg, 1920 * 1080,
+                                1920, 1, dev)
+    assert shape["blocks_per_sm"] * shape["threads"] == 20 * 32, shape
