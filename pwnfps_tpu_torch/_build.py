@@ -5,14 +5,14 @@ plain C interface and loaded with ctypes: no PyTorch headers, so a build
 takes seconds.  A source may include the headers (`*.cuh`) beside it.  The library lands in `_build/` beside this file (listed
 in .gitignore), named by a hash of the source and the flags, so a
 changed source or flag rebuilds and an unchanged one is reused.  Builds
-happen at first use, from the sources in this checkout only.
+happen at first use, from the sources in this checkout only; `_launch`
+loads each library and resolves its entry points.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import shutil
@@ -32,7 +32,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--ftz=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]
 
-_LIBS: dict[str, ctypes.CDLL] = {}
 # per kernel library: seconds its build took in this process (0.0 when
 # it was already built) and the ptxas report (registers, spills)
 BUILD_SECONDS: dict[str, float] = {}
@@ -118,18 +117,3 @@ def build(name: str) -> str:
     """Compile csrc/<name>.cu unless an up-to-date library exists;
     returns the library path."""
     return build_all([name])[name]
-
-
-def load(name: str, sigs: dict) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu.  sigs maps each C
-    function to its ctypes argtypes; every function returns int (its
-    cudaGetLastError())."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(build(name))
-        for fn, argtypes in sigs.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib

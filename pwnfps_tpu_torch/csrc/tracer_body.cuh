@@ -24,10 +24,12 @@
 //     samples > 1 (distribution path tracing, trace_wave_env's samples
 //     branch, tracer_core.py:1804-1817; the TPU kernel writes the mean
 //     unpacked, tracer_pallas.py:657-662) a thread marches its primary
-//     segment once, runs one bounce chain from it per sample with seed
-//     + k*0x9E3779B9, and packs the chains' mean: a second instance of
-//     the same template (S = true), so samples = 1 keeps its code;
-//   * parity (entry pwnfps_trace_parity; the TPU kernel's _parity_math,
+//     segment and shades it once, runs one bounce chain from that
+//     shading per sample with seed + k*0x9E3779B9, and packs the chains'
+//     mean: a second instance of the same template (S = true), so
+//     samples = 1 keeps its code;
+//   * parity (entry pwnfps_trace with parity set; the TPU kernel's
+//     _parity_math,
 //     tracer_pallas.py:446, and _sphere_pass_pallas, :491): unit steps,
 //     the reference's per-cell sphere-bucket scan, and bit-exact math -
 //     the SSE rsqrt/rcp tables (core/approx.py), integer-exact division
@@ -80,9 +82,11 @@
 // the rare-event checks of every step) through warps whose lanes mask off
 // as their rays finish.  Tensor cores, wgmma and clusters have no work
 // here: a ray march has no matrix product.  With samples a ray runs S
-// chains of up to reflect waves; the kept primary segment (the ~17
-// fields shade reads) adds registers, where re-marching it per sample
-// would add a primary march per sample instead.
+// chains of up to reflect waves from one primary segment, marched and
+// shaded once: its shading draws no random number, so its colour,
+// reflectance and fog stay in the unwind records' wave 0 and 8 values
+// (whether it bounces, the bounce origin, the mirrored ray, the end page)
+// in registers across the chains, and each chain begins with the jitter.
 //
 // Parity mode adds integer work: a 27-step restoring division and two
 // 25-step square roots per bucket slot a lane's ray hits, and table
@@ -120,7 +124,19 @@
 //     spill, the fastest budget without one (24 warps at 80 registers
 //     spill 28 bytes).  The fused loop keeps 128-thread blocks and its
 //     116 registers (Block<F>): capped at 96 it spilled and ran slower
-//     on the portal chain and at 320x180.
+//     on the portal chain and at 320x180;
+//   * the samples instances shade the primary segment once a pixel
+//     (3% off config #5's frame in parity mode) and, in fast mode, take
+//     each sphere's two square roots at a segment's start only where its
+//     candidate test can pass (sphere_all<LAZY>; 5% off in all).  They
+//     run each sample's chain after the last, in every lane of a warp
+//     together.  Lanes that each start their next
+//     chain as soon as their own ends, with a warp vote that batches the
+//     shading (Aila and Laine's while-while loop), took 1.49x fewer step
+//     slots on config #5's frame but ran 1.16-2.3x slower, per-pixel
+//     refill off the queue 3.8x: every pixel there shades 25 segments,
+//     which lockstep chains shade all lanes at once and desynchronised
+//     lanes do not.
 // Sphere records sit in shared memory in every instance.
 //
 // Numerics: build with --fmad=false, -prec-div=true, -prec-sqrt=true and
@@ -469,7 +485,11 @@ __device__ __forceinline__ bool sphere_rel(const World& w, float px,
 // Hoisted sphere candidates of the lane's current line
 // (tracer_core.make_sphere_all run_full); `run` is the lane's mask &
 // active, and only a lane on the sphere page has candidates.  Returns
-// the relevance bit (0 or 2).
+// the relevance bit (0 or 2).  LAZY: a sphere's two square roots only
+// where its candidate test can pass (the line ahead within its radius),
+// the only place their result is read; the samples instances' segment
+// starts take it.
+template <bool LAZY = false>
 __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
     if (run && s.page == w.sphere_page) {
         float fire, best_aux;
@@ -500,12 +520,15 @@ __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
             const float dist2 = (relx * relx + relz * relz) + rely * rely;
             const float dot = (relx * s.rx + relz * s.rz) + rely * s.ry;
             const float calcrad2 = dist2 - dot * dot;
-            const float sph_dist = sqrtf(dist2) - sqrtf(fmax_nan(
-                1.0f - calcrad2 * r[SINVR2], 0.0f));
+            const bool near = dot > 0.0f && calcrad2 < r[SRAD2];
+            float sph_dist = 0.0f;
+            if (!LAZY || near)
+                sph_dist = sqrtf(dist2) - sqrtf(fmax_nan(
+                    1.0f - calcrad2 * r[SINVR2], 0.0f));
             const float te_d = s.cdist + t_entry;
             const float aux_c = sph_dist + te_d;
             const float fire_c = fmax_nan(aux_c, te_d);
-            const bool upd = dot > 0.0f && calcrad2 < r[SRAD2]
+            const bool upd = near
                 && (fire_c < fire || (fire_c == fire && aux_c < best_aux));
             if (upd) {
                 fire = fire_c;
@@ -1011,14 +1034,18 @@ __device__ __forceinline__ float randfs(uint32_t& seed, float inv_mod) {
 }
 
 // Terminal shading + bounce prep of a finished segment (seg_out_view +
-// shade_and_bounce).  icol: the parent's base colour; on return
-// (fx..rz) hold the bounce ray's origin and direction.  VAR_NOWATER: the
-// flat floor normal (0, 1, 0), not normalised (tracer_core.py:1719-1722).
+// shade_and_bounce) up to the reflect jitter, the only part that draws
+// random numbers.  icol: the parent's base colour; on return (fx, fy, fz)
+// hold the bounce ray's origin and (mrx, mry, mrz) its direction before
+// the jitter.  VAR_NOWATER: the flat floor normal (0, 1, 0), not
+// normalised (tracer_core.py:1719-1722).
 template <bool P, int V = VAR_NONE>
-__device__ Shade shade(const World& w, const Seg& s, const float icol[4],
-                       uint32_t& seed, float sec, bool depth_ok,
-                       float inv_mod, float& fx, float& fy, float& fz,
-                       float& rx_o, float& ry_o, float& rz_o) {
+__device__ __forceinline__ Shade shade_hit(const World& w, const Seg& s,
+                                           const float icol[4], float sec,
+                                           bool depth_ok, float& fx,
+                                           float& fy, float& fz,
+                                           float& mrx_o, float& mry_o,
+                                           float& mrz_o) {
     const int tkind = s.tmeta & 3;
     const int tcolid = (s.tmeta >> 2) & 3;
     const int ld = s.ldir;
@@ -1111,16 +1138,40 @@ __device__ Shade shade(const World& w, const Seg& s, const float icol[4],
         mrz = nz * rmul + rz;
         normalise<P>(w, mrx, mry, mrz);
     }
-    // reflect blur: 5 draws, 2 discarded (trace.h:77-84)
+    mrx_o = mrx;
+    mry_o = mry;
+    mrz_o = mrz;
+    fx = mpx;
+    fy = mpy;
+    fz = mpz;
+    return o;
+}
+
+// The reflect blur of a bounce direction: 5 draws, 2 discarded
+// (trace.h:77-84)
+__device__ __forceinline__ void jitter(uint32_t& seed, float inv_mod,
+                                       float mrx, float mry, float mrz,
+                                       float& rx_o, float& ry_o,
+                                       float& rz_o) {
     const float rb = 0.03f;
     rx_o = mrx + randfs(seed, inv_mod) * rb;
     ry_o = mry + randfs(seed, inv_mod) * rb;
     randfs(seed, inv_mod);
     rz_o = mrz + randfs(seed, inv_mod) * rb;
     randfs(seed, inv_mod);
-    fx = mpx;
-    fy = mpy;
-    fz = mpz;
+}
+
+// shade_hit and the jitter: on return (fx..rz) hold the bounce ray's
+// origin and direction
+template <bool P, int V = VAR_NONE>
+__device__ Shade shade(const World& w, const Seg& s, const float icol[4],
+                       uint32_t& seed, float sec, bool depth_ok,
+                       float inv_mod, float& fx, float& fy, float& fz,
+                       float& rx_o, float& ry_o, float& rz_o) {
+    float mrx, mry, mrz;
+    const Shade o = shade_hit<P, V>(w, s, icol, sec, depth_ok, fx, fy, fz,
+                                    mrx, mry, mrz);
+    jitter(seed, inv_mod, mrx, mry, mrz, rx_o, ry_o, rz_o);
     return o;
 }
 
@@ -1227,26 +1278,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // Start a segment from origin (fx, fy, fz) along (rx, ry, rz) on `page`:
 // its marching state and, in fast mode, its line's sphere candidates
-// (tracer_core.run_segment's prologue)
-template <bool P, bool T>
+// (tracer_core.run_segment's prologue); LAZY: as sphere_all's
+template <bool P, bool T, bool LAZY = false>
 __device__ __forceinline__ void start(const World& w, const Params& a,
                                       Seg& s, float fx, float fy, float fz,
                                       float rx, float ry, float rz,
                                       int page) {
     init_segment<P, T>(w, s, fx, fy, fz, rx, ry, rz, true, page);
-    if (!P && a.n_spheres > 0) s.sph_dirty = sphere_all(w, s, true, false);
+    if (!P && a.n_spheres > 0)
+        s.sph_dirty = sphere_all<LAZY>(w, s, true, false);
 }
 
 // March one segment until it terminates or the step budget runs out
 // (tracer_core.run_segment).  VAR_PROFILE returns the terminal step count
 // (tracer_core.py:1436-1456): step + 1 on the step the ray died, maxsteps
-// if the budget ran out; the other instances return 0.
-template <bool P, int V, bool T>
+// if the budget ran out; the other instances return 0.  LAZY: start's.
+template <bool P, int V, bool T, bool LAZY = false>
 __device__ __forceinline__ int march(const World& w, const Params& a,
                                      Seg& s, float fx, float fy, float fz,
                                      float rx, float ry, float rz,
                                      int page) {
-    start<P, T>(w, a, s, fx, fy, fz, rx, ry, rz, page);
+    start<P, T, LAZY>(w, a, s, fx, fy, fz, rx, ry, rz, page);
     int tstep = 0;
     for (int step = 0; step < a.maxsteps && s.active; ++step) {
         segment_body<P, V, T>(w, s);
@@ -1259,6 +1311,42 @@ __device__ __forceinline__ int march(const World& w, const Params& a,
         if constexpr (V == VAR_PROFILE) tstep = a.maxsteps;
     }
     return tstep;
+}
+
+// Wave k's shaded colour, reflectance and fog to the thread's column of
+// the unwind records (rec[(k * REC + c) * BLOCK]); icol gets the colour
+__device__ __forceinline__ void record(float* rec, int k, const Shade& o,
+                                       float icol[4]) {
+    float* r = rec + k * REC * BLOCK;
+    r[0] = o.b;
+    r[BLOCK] = o.g;
+    r[2 * BLOCK] = o.r;
+    r[3 * BLOCK] = o.a;
+    r[4 * BLOCK] = o.refl;
+    r[5 * BLOCK] = o.fog;
+    icol[0] = o.b;
+    icol[1] = o.g;
+    icol[2] = o.r;
+    icol[3] = o.a;
+}
+
+// Backward unwind blend (tracer_core.py:1795-1801) of a chain whose last
+// wave, `last`, has colour icol: every wave below it bounced
+template <bool P>
+__device__ __forceinline__ void unwind(const float* rec, int last,
+                                       const float icol[4], float col[4]) {
+    for (int c = 0; c < 4; ++c) col[c] = icol[c];
+    for (int k = last - 1; k >= 0; --k) {
+        const float* r = rec + k * REC * BLOCK;
+        const float refl = r[4 * BLOCK], fog = r[5 * BLOCK];
+        const float fogf = m_exp<P>(-0.6f * fog);
+        for (int c = 0; c < 4; ++c) {
+            const float blended = col[c] * refl
+                + r[c * BLOCK] * (1.0f - refl);
+            col[c] = fog != 0.0f ? blended * fogf + (1.0f - fogf)
+                                 : blended;
+        }
+    }
 }
 
 // One bounce chain (trace_wave_env's chain, tracer_core.py:1774-1802):
@@ -1287,34 +1375,45 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
         }
         const Shade o = shade<P, V>(w, s, icol, seed, a.sec, k < a.reflect,
                                     a.inv_mod, fx, fy, fz, rx, ry, rz);
-        float* r = rec + k * REC * BLOCK;
-        r[0] = o.b;
-        r[BLOCK] = o.g;
-        r[2 * BLOCK] = o.r;
-        r[3 * BLOCK] = o.a;
-        r[4 * BLOCK] = o.refl;
-        r[5 * BLOCK] = o.fog;
-        icol[0] = o.b;
-        icol[1] = o.g;
-        icol[2] = o.r;
-        icol[3] = o.a;
+        record(rec, k, o, icol);
         last = k;
         if (!o.bounce) break;
     }
-    // backward unwind blend (tracer_core.py:1795-1801) from the last
-    // wave's colour, which icol holds: every wave below `last` bounced
-    for (int c = 0; c < 4; ++c) col[c] = icol[c];
-    for (int k = last - 1; k >= 0; --k) {
-        const float* r = rec + k * REC * BLOCK;
-        const float refl = r[4 * BLOCK], fog = r[5 * BLOCK];
-        const float fogf = m_exp<P>(-0.6f * fog);
-        for (int c = 0; c < 4; ++c) {
-            const float blended = col[c] * refl
-                + r[c * BLOCK] * (1.0f - refl);
-            col[c] = fog != 0.0f ? blended * fogf + (1.0f - fogf)
-                                 : blended;
+    unwind<P>(rec, last, icol, col);
+}
+
+// Sample chain k of trace_ray's samples loop from the primary segment's
+// shading (shade_hit: it draws no random number, so it is the same in
+// every chain), which stays in the unwind records' wave 0 (its colour,
+// reflectance and fog) and in registers (bounce, whether it bounces; its
+// bounce origin px, py, pz, mirrored ray mx, my, mz and end page): the
+// jitter with this chain's seed, then waves 1..reflect and the unwind as
+// chain() runs them.
+template <bool P, bool T>
+__device__ __forceinline__ void chain_from(const World& w, const Params& a,
+                                           bool bounce, float px, float py,
+                                           float pz, float mx, float my,
+                                           float mz, int page,
+                                           uint32_t seed, float col[4],
+                                           float* rec) {
+    float icol[4] = {rec[0], rec[BLOCK], rec[2 * BLOCK], rec[3 * BLOCK]};
+    int last = 0;
+    if (bounce) {
+        float fx = px, fy = py, fz = pz, rx, ry, rz;
+        jitter(seed, a.inv_mod, mx, my, mz, rx, ry, rz);
+        Seg s;
+        for (int k = 1; k <= a.reflect; ++k) {
+            march<P, VAR_NONE, T, true>(w, a, s, fx, fy, fz, rx, ry, rz,
+                                        page);
+            const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
+                                     a.inv_mod, fx, fy, fz, rx, ry, rz);
+            record(rec, k, o, icol);
+            last = k;
+            page = s.page;
+            if (!o.bounce) break;
         }
     }
+    unwind<P>(rec, last, icol, col);
 }
 
 // The fused wave loop (tracer_core.run_fused, _process_deaths), fast mode,
@@ -1398,13 +1497,14 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
 }
 
 // Trace ray i and write its packed colour and primary distance.  S:
-// a.samples > 1.  The primary wave consumes no RNG, so it is marched once
-// and kept (the fields shade reads stay in registers); each sample k runs
-// its chain from it with seed + k*WEYL, the chains' colours are summed in
-// sample order ((c0 + c1) + c2) + ..., and the sum is scaled by the
-// host's f32(1 / samples) before the pack (tracer_core.py:1804-1817).
-// S = false is the one-chain trace.  F: the fused wave loop (P = S =
-// false).  V: a measurement instance (VAR_*; P = S = F = false).
+// a.samples > 1.  The primary wave consumes no RNG, so it is marched and
+// shaded once (shade_hit, its record rec[0]) and only its shading's
+// results are kept; each sample k runs its chain from them with seed +
+// k*WEYL (chain_from), the chains' colours are summed in sample order
+// ((c0 + c1) + c2) + ..., and the sum is scaled by the host's f32(1 /
+// samples) before the pack (tracer_core.py:1804-1817).  S = false is the
+// one-chain trace.  F: the fused wave loop (P = S = false).  V: a
+// measurement instance (VAR_*; P = S = F = false).
 template <bool P, bool S, bool F, int V, bool T>
 __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
                                           int i, float* rec) {
@@ -1417,27 +1517,38 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
                  f);
         for (int j = 0; j < 4; ++j) col[j] = f.col[j];
         dist0 = f.dist0;
+    } else if constexpr (S) {
+        Seg s;
+        march<P, V, T, true>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
+                             a.dy[i], a.dz[i], a.page0);
+        // the distance now: it need not stay live across the chains
+        a.out_dist[i] = s.cdist;
+        const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+        float px, py, pz, mx, my, mz, icol[4];
+        const Shade o0 = shade_hit<P>(w, s, one, a.sec, 0 < a.reflect, px,
+                                      py, pz, mx, my, mz);
+        record(rec, 0, o0, icol);
+        for (int k = 0; k < a.samples; ++k) {
+            float c[4];
+            chain_from<P, T>(w, a, o0.bounce, px, py, pz, mx, my, mz,
+                             s.page, seed + (uint32_t)k * WEYL, c, rec);
+            for (int j = 0; j < 4; ++j)
+                col[j] = k == 0 ? c[j] : col[j] + c[j];
+        }
+        for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
     } else {
         Seg s;
         int ts[V == VAR_PROFILE ? MAX_WAVES : 1] = {};
         ts[0] = march<P, V, T>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
                                a.dy[i], a.dz[i], a.page0);
         dist0 = s.cdist;
-        for (int k = 0; k < (S ? a.samples : 1); ++k) {
-            float c[4];
-            chain<P, V, T>(w, a, s, seed + (uint32_t)k * WEYL, c, rec, ts);
-            for (int j = 0; j < 4; ++j)
-                col[j] = k == 0 ? c[j] : col[j] + c[j];
-        }
-        if (S) {
-            for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
-        }
+        chain<P, V, T>(w, a, s, seed, col, rec, ts);
         if constexpr (V == VAR_PROFILE) {
             for (int k = 0; k <= a.reflect; ++k)
                 a.out_tstep[(size_t)k * a.n + i] = ts[k];
         }
     }
-    a.out_dist[i] = dist0;
+    if constexpr (!S) a.out_dist[i] = dist0;
     a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
                             | pack_chan(col[2], 16)
                             | pack_chan(col[3], 24));
@@ -1632,6 +1743,64 @@ int launch_instance(const Params& a, void* stream) {
     if (((uintptr_t)a.ent | (uintptr_t)a.word) % 16 != 0)
         return (int)cudaErrorMisalignedAddress;
     return launch_tiles<P, S, F, V, true>(a, stream);
+}
+
+// The entry points' one argument, which ops/tracer.py packs (_ARGS):
+// the pointers, then the 32-bit ints, then the floats, so that no field
+// is padded.  parity selects pwnfps_trace_parity's instances, variant the
+// measurement instance (VAR_*) of pwnfps_trace_variant; query set: report
+// the launch there and do not launch (launch_tiles).
+struct Args {
+    const void *ox, *oy, *oz, *dx, *dy, *dz, *seeds, *ent, *word, *sph,
+        *bound, *buckets, *rsq_tab, *rcp_tab;
+    void *out_fb, *out_dist, *out_tstep, *queue, *query;
+    int32_t n, n_spheres, k_bucket, maxsteps, reflect, skip, n_pages,
+        sphere_page, page0, samples, fused, step_chunk, width, parity,
+        variant, unused;
+    float sec, slack, inv_mod, inv;
+};
+static_assert(sizeof(Args) == 19 * 8 + 16 * 4 + 4 * 4,
+              "Args must match ops/tracer.py's _ARGS");
+
+__host__ inline Params params_of(const Args& g) {
+    Params a = {};
+    a.ox = (const float*)g.ox;
+    a.oy = (const float*)g.oy;
+    a.oz = (const float*)g.oz;
+    a.dx = (const float*)g.dx;
+    a.dy = (const float*)g.dy;
+    a.dz = (const float*)g.dz;
+    a.seeds = (const int32_t*)g.seeds;
+    a.ent = (const int32_t*)g.ent;
+    a.word = (const int32_t*)g.word;
+    a.sph = (const float*)g.sph;
+    a.bound = (const float*)g.bound;
+    a.buckets = (const int32_t*)g.buckets;
+    a.rsq_tab = (const uint32_t*)g.rsq_tab;
+    a.rcp_tab = (const uint32_t*)g.rcp_tab;
+    a.n = g.n;
+    a.n_spheres = g.n_spheres;
+    a.k_bucket = g.k_bucket;
+    a.maxsteps = g.maxsteps;
+    a.reflect = g.reflect;
+    a.skip = g.skip;
+    a.n_pages = g.n_pages;
+    a.sphere_page = g.sphere_page;
+    a.page0 = g.page0;
+    a.samples = g.samples;
+    a.fused = g.fused;
+    a.step_chunk = g.step_chunk;
+    a.sec = g.sec;
+    a.slack = g.slack;
+    a.inv_mod = g.inv_mod;
+    a.inv = g.inv;
+    a.out_fb = (int32_t*)g.out_fb;
+    a.out_dist = (float*)g.out_dist;
+    a.out_tstep = (int32_t*)g.out_tstep;
+    a.queue = (int*)g.queue;
+    a.query = (int*)g.query;
+    set_tiles(a, g.width);
+    return a;
 }
 
 // The parameter checks of every entry point: out of range or a combination

@@ -31,7 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import _build
+from .._launch import Entry
 from ..core import lcg
 from ..core.ieee import to_i32
 
@@ -43,10 +43,12 @@ LAUNCHES = 0
 LAUNCHES_FRAMES = 0
 LAUNCHES_BAND = 0
 # C entry points of csrc/blur.cu
-_SIGS = {"pwnfps_dof_blur": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-         + [ctypes.c_float] * 2 + [ctypes.c_void_p],
-         "pwnfps_dof_blur_band": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-         + [ctypes.c_float] * 2 + [ctypes.c_void_p]}
+_BLUR = Entry("blur", "pwnfps_dof_blur",
+              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+              + [ctypes.c_float] * 2)
+_BLUR_BAND = Entry("blur", "pwnfps_dof_blur_band",
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2)
 
 
 @lru_cache(maxsize=8)
@@ -76,6 +78,7 @@ def _avg_epu8(a, b):
     return (a | b) - (((a ^ b) >> 1) & 0x7F7F7F7F)
 
 
+@lru_cache(maxsize=64)
 def _fstr(h: int) -> float:
     return float(np.float32(0.002) * np.float32(h))    # screen.h:86
 
@@ -190,14 +193,8 @@ def _launch(fb: torch.Tensor, zbuf: torch.Tensor, tab: torch.Tensor,
     global LAUNCHES, LAUNCHES_FRAMES
     rows, w = fb.shape
     out = torch.empty_like(fb)
-    lib = _build.load("blur", _SIGS)
-    with torch.cuda.device(fb.device):
-        err = lib.pwnfps_dof_blur(
-            fb.data_ptr(), zbuf.data_ptr(), tab.data_ptr(), out.data_ptr(),
-            rows, w, fh, _fstr(fh), lcg.INV_MOD_F,
-            torch.cuda.current_stream(fb.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dof_blur kernel launch failed: CUDA error {err}")
+    _BLUR(fb.get_device(), fb.data_ptr(), zbuf.data_ptr(), tab.data_ptr(),
+          out.data_ptr(), rows, w, fh, _fstr(fh), lcg.INV_MOD_F)
     LAUNCHES += 1
     if fh < rows:
         LAUNCHES_FRAMES += 1
@@ -249,15 +246,9 @@ def _launch_band(fb_pad: torch.Tensor, zb: torch.Tensor, y0: int,
     halo = (fb_pad.shape[1] - hb) // 2
     out = torch.empty(zb.shape, dtype=torch.int32, device=zb.device)
     tab = _device_tables(w, zb.device)
-    lib = _build.load("blur", _SIGS)
-    with torch.cuda.device(zb.device):
-        err = lib.pwnfps_dof_blur_band(
-            fb_pad.data_ptr(), zb.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), cl, hb, halo, w, y0, fh, _fstr(fh),
-            lcg.INV_MOD_F, torch.cuda.current_stream(zb.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dof_blur_band kernel launch failed: CUDA "
-                           f"error {err}")
+    _BLUR_BAND(zb.get_device(), fb_pad.data_ptr(), zb.data_ptr(),
+               tab.data_ptr(), out.data_ptr(), cl, hb, halo, w, y0, fh,
+               _fstr(fh), lcg.INV_MOD_F)
     LAUNCHES_BAND += 1
     return out
 

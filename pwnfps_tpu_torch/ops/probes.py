@@ -16,17 +16,18 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build
+from .._launch import Entry
 
 # launches of each kernel since import (reset by callers that count); a
 # launch recorded into a CUDA graph counts once, at its capture
 LAUNCHES_ADD_ONE = 0
 LAUNCHES_VPU = 0
 # C entry points of csrc/probes.cu
-_SIGS = {"pwnfps_add_one": [ctypes.c_void_p] * 2 + [ctypes.c_int]
-         + [ctypes.c_void_p],
-         "pwnfps_vpu_chains": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-         + [ctypes.c_float] * 2 + [ctypes.c_void_p]}
+_ADD_ONE = Entry("probes", "pwnfps_add_one",
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int])
+_VPU_CHAINS = Entry("probes", "pwnfps_vpu_chains",
+                    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                    + [ctypes.c_float] * 2)
 
 ROWS, LANES = 8, 128        # one plane (vpu_probe.py:34)
 U = 32                      # chained updates a chain an iteration (:35)
@@ -46,21 +47,15 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES_ADD_ONE
     if x.dtype != torch.float32:
         raise ValueError("add_one takes float32")
-    if x.device.type == "cpu":
-        return add_one_plain(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return add_one_plain(x)
         raise ValueError(f"unsupported device {x.device}")
     if not x.is_contiguous() or x.numel() >= 2 ** 31:
         raise ValueError("add_one takes a contiguous tensor of fewer than "
                          "2^31 elements")
     out = torch.empty_like(x)
-    lib = _build.load("probes", _SIGS)
-    with torch.cuda.device(x.device):
-        err = lib.pwnfps_add_one(
-            x.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"add_one launch failed: CUDA error {err}")
+    _ADD_ONE(x.get_device(), x.data_ptr(), out.data_ptr(), x.numel())
     LAUNCHES_ADD_ONE += 1
     return out
 
@@ -111,15 +106,8 @@ def vpu_chains(a: torch.Tensor, variant: str, S: int, T: int,
     keep = a.contiguous()
     out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
                       device=a.device)
-    lib = _build.load("probes", _SIGS)
-    with torch.cuda.device(a.device):
-        err = lib.pwnfps_vpu_chains(keep.data_ptr(), out.data_ptr(),
-                                    int(variant == "sel"), S, T, blocks,
-                                    MUL, ADD,
-                                    torch.cuda.current_stream(
-                                        a.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"vpu_chains launch failed: CUDA error {err}")
+    _VPU_CHAINS(a.get_device(), keep.data_ptr(), out.data_ptr(),
+                int(variant == "sel"), S, T, blocks, MUL, ADD)
     LAUNCHES_VPU += 1
     return out
 

@@ -3,8 +3,8 @@ trace_wave and tracer_pallas.py:trace_wave_pallas).
 
 `trace_wave_plain` runs the plain torch tracer (ops/tracer_core.py) on
 any device.  `trace_wave` takes it for CPU tensors and launches the
-CUDA kernel of csrc/tracer.cu for CUDA tensors: entry `pwnfps_trace` in
-fast mode, `pwnfps_trace_parity` when `cfg.parity` is set.  The kernel
+CUDA kernel of csrc/tracer.cu for CUDA tensors: entry `pwnfps_trace`,
+in fast mode or, when `cfg.parity` is set, in parity mode.  The kernel
 replaces the TPU kernel pwnfps_tpu/ops/tracer_pallas.py:_kernel: one
 page or a paged world in both modes, where every ray starts on the
 scalar page `page0` (the TPU kernel's `page0_ref`, tracer_pallas.py:648).
@@ -17,7 +17,10 @@ The measurement instances (`cfg.profile`, `cfg.water=False`, `cfg.probe`;
 fast mode, one sample, unfused, one page or paged) launch entry
 `pwnfps_trace_variant` of csrc/tracer_variants.cu, one instance of the
 same template each.  `trace_wave_profile` returns the profile instance's
-per-wave terminal step counts beside the frame.
+per-wave terminal step counts beside the frame.  Both entries take one
+argument, the launch's fields packed into csrc/tracer_body.cuh's `Args`
+(`_ARGS`), through the port's launch route (`_launch.Entry`); a world's
+table checks and addresses are kept after its first launch.
 
 Each warp of every instance traces a tile of 32 rays: 8x4 pixels of
 the row-major image `cfg.width` wide that the rays are taken to be
@@ -32,11 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import struct
+import weakref
 
 import numpy as np
 import torch
 
-from .. import _build
+from .._launch import Entry, stream as current_stream
 from ..core import lcg
 from ..core.config import RenderConfig
 from .tracer_core import (PROBES, check_config, col_ftoint,
@@ -65,21 +70,21 @@ LAUNCHES_PARITY_PAGED = 0
 VARIANTS = {name: k for k, name in enumerate(("nowater", "profile")
                                              + PROBES, 1)}
 LAUNCHES_VARIANT = dict.fromkeys(VARIANTS, 0)
-# C entry points of csrc/tracer.cu and csrc/tracer_variants.cu
-_TAIL = [ctypes.c_int, ctypes.c_void_p]     # width, stream
-_QTAIL = [ctypes.c_int] + [ctypes.c_void_p] * 2    # width, queue, stream
-_SIGS = {"pwnfps_trace": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
-         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2 + _QTAIL,
-         "pwnfps_trace_parity": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2 + _QTAIL,
-         "pwnfps_trace_query": [ctypes.c_int] * 7 + [ctypes.c_void_p]}
-_SIGS_VARIANTS = {"pwnfps_trace_variant": [ctypes.c_void_p] * 11
-                  + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                  + [ctypes.c_void_p] * 3 + _TAIL}
+# C entry points of csrc/tracer.cu and csrc/tracer_variants.cu, each
+# taking one packed argument: csrc/tracer_body.cuh's Args, 19 pointers,
+# 16 int32 and 4 float32 (struct packing rounds each float to f32)
+_ARGS = struct.Struct("=19Q16i4f")
+_TRACE = Entry("tracer", "pwnfps_trace", [ctypes.c_char_p])
+_TRACE_VARIANT = Entry("tracer_variants", "pwnfps_trace_variant",
+                       [ctypes.c_char_p])
 # a warp's tile: 8 x 4 pixels, one ray a lane (csrc/tracer_body.cuh)
 WARP, TILE_W, TILE_H = 32, 8, 4
-# the tile queue of each (device index, stream handle)
-_QUEUES: dict[tuple[int, int], torch.Tensor] = {}
+# the tile queue of each (device index, stream handle): the tensor and
+# its address
+_QUEUES: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+# each world whose tables passed _world_args's checks, by id: (a weak
+# reference to it, its device index, its tables' addresses)
+_WORLDS: dict[int, tuple] = {}
 
 
 def warp_tiles(n: int, width: int | None = None) -> np.ndarray:
@@ -100,30 +105,45 @@ def warp_tiles(n: int, width: int | None = None) -> np.ndarray:
     return np.where((x < width) & (y < rows), y * width + x, -1)
 
 
-def _queue(dev: torch.device, stream: int) -> torch.Tensor:
-    q = _QUEUES.get((dev.index, stream))
+def _queue(index: int, stream: int) -> int:
+    """The address of the tile queue of `stream` on device `index`."""
+    q = _QUEUES.get((index, stream))
     if q is None:
-        q = _QUEUES[(dev.index, stream)] = torch.zeros(
-            2, dtype=torch.int32, device=dev)
-    return q
+        t = torch.zeros(2, dtype=torch.int32, device=torch.device("cuda",
+                                                                  index))
+        q = _QUEUES[(index, stream)] = (t, t.data_ptr())
+    return q[1]
+
+
+def _pack(wt: TorchWorld, cfg: RenderConfig, n: int, rays, outs, queue,
+          sec, page0: int, width: int, var: str) -> bytes:
+    """The kernel's Args for a launch: rays the 7 input addresses, outs
+    the (fb, dist, tstep) addresses (0: none), queue the tile queue's."""
+    fused = cfg.fused and not cfg.parity and not var
+    return _ARGS.pack(
+        *rays, *_world_args(wt)[1], *outs, queue, 0,
+        n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
+        cfg.space_skip and wt.skip_ok, wt.n_pages, wt.sphere_page, page0,
+        cfg.samples, fused, max(1, cfg.step_chunk), width, cfg.parity,
+        VARIANTS.get(var, 0), 0, sec, wt.slack, lcg.INV_MOD_F,
+        1.0 / cfg.samples)
 
 
 def launch_shape(cfg: RenderConfig, n: int, width: int | None,
                  n_pages: int, device) -> dict:
     """What the rendering instance cfg selects takes on `device` for n
     rays: dynamic shared memory bytes a block, resident blocks an SM,
-    threads a block and the blocks of the launch (pwnfps_trace_query)."""
-    lib = _build.load("tracer", _SIGS)
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-        err = lib.pwnfps_trace_query(
-            int(cfg.parity), n, width or 0, cfg.reflect, n_pages,
-            cfg.samples, int(cfg.fused and not cfg.parity),
-            ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"trace kernel query failed: CUDA error {err}")
+    threads a block and the blocks of the launch (pwnfps_trace with its
+    query set)."""
+    out = torch.zeros(4, dtype=torch.int32)
+    fused = cfg.fused and not cfg.parity
+    args = _ARGS.pack(*[0] * 18, out.data_ptr(), n, 0, 0, 0, cfg.reflect,
+                      0, n_pages, 0, 0, cfg.samples, fused, 1, width or 0,
+                      cfg.parity, 0, 0, 0.0, 0.0, 0.0, 0.0)
+    index = torch.device(device).index or 0
+    _TRACE.on(index, 0, args)
     return dict(zip(("smem_bytes", "blocks_per_sm", "threads", "blocks"),
-                    out))
+                    out.tolist()))
 
 
 def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
@@ -140,21 +160,16 @@ def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     return (col_ftoint(col), dist) if pack else (col, dist)
 
 
-def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
-    if not 0 <= page0 < wt.n_pages:
-        raise ValueError(f"start page {page0} is not a page of a "
-                         f"{wt.n_pages}-page world")
-    n = ifrom.x.shape[0]
-    for t in (*ifrom, *iray):
-        if t.shape != (n,) or t.dtype != torch.float32:
-            raise ValueError("ifrom/iray components must be float32 [n]")
-    if seed.shape != (n,) or seed.dtype != torch.int32:
-        raise ValueError("seed must be int32 [n] (uint32 bits)")
+def _world_args(wt: TorchWorld) -> tuple[int, tuple]:
+    """(device index, -1 on the CPU, and the addresses of ent, word, sph,
+    bound, buckets, rsqrt_tab and rcp_tab) of a world whose tables have
+    world_to_torch's shapes and layout, or ValueError.  Checked once a
+    world: a TorchWorld is frozen, and its tables are not replaced."""
+    hit = _WORLDS.get(id(wt))
+    if hit is not None and hit[0]() is wt:
+        return hit[1], hit[2]
     tables = (wt.ent, wt.word, wt.sph, wt.bound, wt.buckets, wt.rsqrt_tab,
               wt.rcp_tab)
-    devs = {t.device for t in (*ifrom, *iray, seed, *tables)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
     cells = wt.n_pages * 4096
     if (wt.ent.shape != (cells,) or wt.word.shape != (cells,)
             or not 0 <= wt.sphere_page < wt.n_pages
@@ -168,6 +183,30 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
             or not all(t.is_contiguous() for t in tables)):
         raise ValueError("world tables do not have world_to_torch's "
                          "shapes and layout")
+    devs = {t.device for t in tables}
+    if len(devs) != 1:
+        raise ValueError(f"world tables on several devices: {devs}")
+    key = id(wt)
+    hit = _WORLDS[key] = (
+        weakref.ref(wt, lambda _, key=key: _WORLDS.pop(key, None)),
+        wt.ent.get_device(), tuple(t.data_ptr() for t in tables))
+    return hit[1], hit[2]
+
+
+def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
+    if not 0 <= page0 < wt.n_pages:
+        raise ValueError(f"start page {page0} is not a page of a "
+                         f"{wt.n_pages}-page world")
+    n = ifrom.x.shape[0]
+    for t in (*ifrom, *iray):
+        if t.shape != (n,) or t.dtype != torch.float32:
+            raise ValueError("ifrom/iray components must be float32 [n]")
+    if seed.shape != (n,) or seed.dtype != torch.int32:
+        raise ValueError("seed must be int32 [n] (uint32 bits)")
+    index = _world_args(wt)[0]
+    if any(t.get_device() != index for t in (*ifrom, *iray, seed)):
+        raise ValueError("rays, seeds and world tables on several "
+                         "devices")
 
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
@@ -178,70 +217,32 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
         LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED
     n = ifrom.x.shape[0]
-    dev = ifrom.x.device
+    index = seed.get_device()
     # the contiguous copies must outlive the launch: keep them here
     keep = [t.contiguous() for t in (*ifrom, *iray, seed)]
-    ins = [t.data_ptr() for t in keep]
-    fb = torch.empty(n, dtype=torch.int32, device=dev)
-    dist = torch.empty(n, dtype=torch.float32, device=dev)
-    tstep = None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    width = cfg.width if width is None else width
-    tail = (width, stream)
-    qtail = (width, _queue(dev, stream).data_ptr(), stream)
-    inv = float(np.float32(1.0 / cfg.samples))
-    fused = cfg.fused and not cfg.parity
+    fb = torch.empty_like(keep[6])
+    dist = torch.empty_like(keep[0])
     var = variant(cfg)
+    tstep = (torch.empty((cfg.n_waves, n), dtype=torch.int32,
+                         device=seed.device) if var == "profile" else None)
+    stream = current_stream(index)
+    args = _pack(wt, cfg, n, [t.data_ptr() for t in keep],
+                 (fb.data_ptr(), dist.data_ptr(),
+                  tstep.data_ptr() if tstep is not None else 0),
+                 _queue(index, stream), sec, page0,
+                 cfg.width if width is None else width, var)
     if var:
-        lib = _build.load("tracer_variants", _SIGS_VARIANTS)
-        if var == "profile":
-            tstep = torch.empty((cfg.n_waves, n), dtype=torch.int32,
-                                device=dev)
-        with torch.cuda.device(dev):
-            err = lib.pwnfps_trace_variant(
-                *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
-                wt.sph.data_ptr(), wt.bound.data_ptr(),
-                n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
-                int(cfg.space_skip and wt.skip_ok), wt.n_pages,
-                wt.sphere_page, page0, VARIANTS[var],
-                float(np.float32(sec)), float(np.float32(wt.slack)),
-                lcg.INV_MOD_F, fb.data_ptr(), dist.data_ptr(),
-                tstep.data_ptr() if tstep is not None else None, *tail)
-        if err != 0:
-            raise RuntimeError(f"trace kernel ({var}) launch failed: CUDA "
-                               f"error {err}")
+        _TRACE_VARIANT.on(index, stream, args)
         LAUNCHES_VARIANT[var] += 1
         return fb, dist, tstep
-    lib = _build.load("tracer", _SIGS)
-    with torch.cuda.device(dev):
-        if cfg.parity:
-            err = lib.pwnfps_trace_parity(
-                *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
-                wt.sph.data_ptr(), wt.buckets.data_ptr(),
-                wt.rsqrt_tab.data_ptr(), wt.rcp_tab.data_ptr(),
-                n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
-                wt.n_pages, wt.sphere_page, page0, cfg.samples,
-                float(np.float32(sec)), lcg.INV_MOD_F, inv,
-                fb.data_ptr(), dist.data_ptr(), *qtail)
-        else:
-            err = lib.pwnfps_trace(
-                *ins, wt.ent.data_ptr(), wt.word.data_ptr(),
-                wt.sph.data_ptr(), wt.bound.data_ptr(),
-                n, wt.n_spheres, cfg.maxsteps, cfg.reflect,
-                int(cfg.space_skip and wt.skip_ok), wt.n_pages,
-                wt.sphere_page, page0, cfg.samples, int(fused),
-                max(1, cfg.step_chunk), float(np.float32(sec)),
-                float(np.float32(wt.slack)), lcg.INV_MOD_F, inv,
-                fb.data_ptr(), dist.data_ptr(), *qtail)
-    if err != 0:
-        raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
+    _TRACE.on(index, stream, args)
     if cfg.parity and wt.n_pages > 1:
         LAUNCHES_PARITY_PAGED += 1
     elif cfg.parity and cfg.samples > 1:
         LAUNCHES_PARITY_SAMPLES += 1
     elif cfg.parity:
         LAUNCHES_PARITY += 1
-    elif fused:
+    elif cfg.fused:
         LAUNCHES_FUSED += 1
     elif cfg.samples > 1:
         LAUNCHES_SAMPLES += 1

@@ -12,9 +12,16 @@ the path,
     PYTHONPATH=path/to/tree python path/to/tools/instance_times.py \\
         --tag name --ref plain.pt --out times.jsonl
 
+It also reads the host's cost to issue a launch (`host_issue_us`) of
+`add_one` (K5), the flagship `trace_wave` and `dof_blur` at 1080p: the
+host-clock time of ISSUE_N calls issued while one long `vpu_chains`
+launch, queued before them, keeps the card busy, so that no call waits
+for the device.
+
 Each run appends one JSON line to `--out`: the tag, the card's name and
 power limit, the ptxas line of every trace_kernel instance, the
-flagship launch's shape where the tree reports it, and each case's ms.
+flagship launch's shape where the tree reports it, each case's ms and
+each host-issue reading in us a launch.
 `--ref` keeps the plain outputs in a file (they do not depend on the
 kernel), so that a series of runs computes them once.  Needs the card
 and nvcc.
@@ -28,20 +35,26 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
 from pwnfps_tpu_torch import _build, scene as S
-from pwnfps_tpu_torch.ops import tracer
+from pwnfps_tpu_torch.ops import blur, probes, tracer
+from pwnfps_tpu_torch.tools import vpu_probe
 from pwnfps_tpu_torch.parallel.sharding import camera_rays
 from pwnfps_tpu_torch.render.frame import frame_rays, pixel_seeds
 
 REPS = 20
+ISSUE_N = 100          # calls a host-issue reading times
+ISSUE_ROUNDS = 3       # readings a function; the least is kept
+ISSUE_T = 20000        # vpu_chains iterations (fma, S=16, a block an SM)
 # name: (scene builder, width, height, keyword arguments)
 CASES = {
     "flagship_1080": (S.flagship_scene, 1920, 1080, {}),
     "stress_720": (S.stress_scene, 1280, 720, {}),
     "maze_720": (S.maze_scene, 1280, 720, {}),
+    "maze_samples_160x90": (S.maze_scene, 160, 90, {"samples": 2}),
     "ptrace_1080": (S.ptrace_scene, 1920, 1080, {}),
     "fused_1080": (S.flagship_scene, 1920, 1080, {"fused": True}),
     "fused_stress_720": (S.stress_scene, 1280, 720, {"fused": True}),
@@ -71,6 +84,43 @@ def case_inputs(name: str, dev) -> tuple:
     return sc.tworld, sc.cfg, ifrom, rays, seeds, sec, sc.cfg.cam_page
 
 
+def host_issue_us(fn, dev, n: int = ISSUE_N) -> float:
+    """Host-clock us to issue one call of fn: n calls issued while one
+    long vpu_chains launch, queued before them, keeps the card busy (on
+    the H100 it runs for tens of ms), so no call waits for the device;
+    the least of ISSUE_ROUNDS readings."""
+    a = vpu_probe.plane(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn()
+    best = float("inf")
+    for _ in range(ISSUE_ROUNDS):
+        torch.cuda.synchronize(dev)
+        probes.vpu_chains(a, "fma", 16, ISSUE_T, sms)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize(dev)
+    return best / n * 1e6
+
+
+def issue_readings(dev) -> dict:
+    """host_issue_us of add_one on K5's [16320, 128], of the flagship
+    trace_wave at 1080p and of dof_blur on its frame."""
+    x = torch.rand((16320, 128), device=dev)
+    wt, cfg, ifrom, rays, seeds, sec, page0 = case_inputs("flagship_1080",
+                                                          dev)
+
+    def trace():
+        return tracer.trace_wave(wt, cfg, ifrom, rays, seeds, sec,
+                                 pack=True, page0=page0)
+    fb, z = trace()
+    fb, z = fb.view(cfg.height, cfg.width), z.view(cfg.height, cfg.width)
+    return {"add_one": host_issue_us(lambda: probes.add_one(x), dev),
+            "trace_wave": host_issue_us(trace, dev),
+            "dof_blur": host_issue_us(lambda: blur.dof_blur(fb, z), dev)}
+
+
 def ptxas(log: str) -> dict:
     """{template arguments of each trace_kernel instance: its stack,
     spill and register lines} from the `-Xptxas -v` report."""
@@ -93,11 +143,13 @@ def main(argv=None) -> int:
     p.add_argument("--ref", default=None,
                    help="file of the plain outputs, written if absent")
     p.add_argument("--out", default=None, help="JSON lines to append to")
+    p.add_argument("--cases", nargs="+", default=list(CASES),
+                   choices=list(CASES), help="the cases to time")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("instance_times: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    cases = {c: case_inputs(c, dev) for c in CASES}
+    cases = {c: case_inputs(c, dev) for c in args.cases}
     ref = (torch.load(args.ref) if args.ref and os.path.exists(args.ref)
            else {})
     if any(c not in ref for c in cases):
@@ -127,6 +179,7 @@ def main(argv=None) -> int:
         end.record()
         end.synchronize()
         ms[c] = start.elapsed_time(end) / REPS
+    issue = issue_readings(dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -134,10 +187,13 @@ def main(argv=None) -> int:
     if hasattr(tracer, "launch_shape"):
         shape = tracer.launch_shape(S.flagship_scene(8, 8, dev).cfg,
                                     1920 * 1080, 1920, 1, dev)
-    rec = {"tag": args.tag, "card": card, "ms": ms, "launch": shape,
+    rec = {"tag": args.tag, "card": card, "ms": ms, "issue_us": issue,
+           "launch": shape,
            "ptxas": ptxas(_build.PTXAS_LOG.get("tracer", ""))}
     print(json.dumps({"tag": args.tag, "card": card,
-                      "ms": {c: round(v, 4) for c, v in ms.items()}}))
+                      "ms": {c: round(v, 4) for c, v in ms.items()},
+                      "issue_us": {c: round(v, 3) for c, v in
+                                   issue.items()}}))
     if args.out:
         with open(args.out, "a") as f:
             f.write(json.dumps(rec) + "\n")

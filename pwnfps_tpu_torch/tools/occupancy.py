@@ -25,6 +25,17 @@ longest lane's total), `needed_frac_unfused` and `needed_frac_fused`.
 The CUDA kernel marches each ray's whole chain in one thread, so its
 warps are closest to the fused model.
 
+On the `ptrace` scene the tool also reads config #5's four samples
+(`samples`): the primary wave draws no random number and chain k uses
+the seeds seed + k*0x9E3779B9, so the profile instance run on those
+seeds (`sample_seeds`) gives sample k's per-wave step counts exactly.
+`samples_stats` counts, over the kernel's 8x4 warps, the step slots a
+warp executes when each lane runs sample k's chain before sample k + 1
+(the primary wave once, then for each sample and bounce wave the
+longest lane) against the slots when each lane starts its next chain as
+soon as its own ends (the longest lane's total): their ratio is the
+most that refilling lanes can save in steps.
+
 Scenes (`scene.py`): `default` the flagship frame at 1920x1080, `stress`
 the portal chain at 1280x720, `maze` the paged maze at 1280x720 from its
 camera page, `ptrace` the flagship's demo level at 1920x1080 with
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 
 from ..ops import tracer
+from ..ops.tracer_core import WEYL
 from ..render.frame import frame_rays
 from ..scene import flagship_scene, maze_scene, ptrace_scene, stress_scene
 
@@ -57,6 +69,7 @@ TILE_LANES = 8192            # the TPU kernel's tile, 64 x 128 pixels
 BH, BW = 64, 128
 WARP = 32
 BLOCK = 128                  # a block of the flat order
+SAMPLES = 4                  # config #5's chains a pixel (configs.py:286)
 # beside the built kernels, in the package's git-ignored _build/
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "_build", "occupancy.json")
@@ -144,6 +157,62 @@ def all_stats(tstep: np.ndarray, h: int, w: int, chunk: int) -> dict:
     return out
 
 
+def samples_stats(tsteps, h: int, w: int) -> dict:
+    """Step slots of the kernel's 8x4 warps over several samples of one
+    frame.  tsteps: [samples, n_waves, h*w] terminal step counts, one
+    profile trace a sample (wave 0, the primary, equal in all).  Returns
+    `steps_today` (each warp: its longest lane's primary wave, then for
+    every sample and bounce wave its longest lane, times its lanes),
+    `steps_refill` (each warp: its longest lane's total, times its
+    lanes), `needed` (the lanes' steps), `refill_gain` = today / refill
+    and the two occupancies needed / executed; and the same counts of
+    segments (a wave a lane reached: its step count is not 0), each of
+    which is shaded once: `segments_today` (each warp: for every sample
+    and wave any of its lanes reached, one shading pass of all its
+    lanes), `segments_refill` (its lane with the most segments) and
+    `segments_needed`."""
+    t = np.asarray(tsteps, np.int64)
+    if not (t[:, 0] == t[0, 0]).all():
+        raise ValueError("the samples' primary waves differ")
+    tiles = tracer.warp_tiles(h * w, w)
+    lanes = (tiles >= 0).sum(axis=1)
+
+    def per_warp(v):
+        """[n_tiles, 32] of v [h*w], 0 on masked lanes."""
+        return np.append(v, 0)[tiles]
+
+    today = per_warp(t[0, 0]).max(axis=1)
+    for k in range(t.shape[0]):
+        for j in range(1, t.shape[1]):
+            today = today + per_warp(t[k, j]).max(axis=1)
+    total = t[0, 0] + t[:, 1:].sum(axis=(0, 1))
+    refill = per_warp(total).max(axis=1)
+    live = t > 0
+    segs = live[0, 0] + live[:, 1:].sum(axis=(0, 1))
+    seg_today = per_warp(live[0, 0]).max(axis=1).astype(np.int64)
+    for k in range(t.shape[0]):
+        for j in range(1, t.shape[1]):
+            seg_today = seg_today + per_warp(live[k, j]).max(axis=1)
+    steps_today = int((today * lanes).sum())
+    steps_refill = int((refill * lanes).sum())
+    needed = int(total.sum())
+    return dict(samples=int(t.shape[0]), steps_today=steps_today,
+                steps_refill=steps_refill, needed=needed,
+                refill_gain=steps_today / steps_refill,
+                occupancy_today=needed / steps_today,
+                occupancy_refill=needed / steps_refill,
+                segments_today=int((seg_today * lanes).sum()),
+                segments_refill=int((per_warp(segs).max(axis=1)
+                                     * lanes).sum()),
+                segments_needed=int(segs.sum()))
+
+
+def sample_seeds(seeds: torch.Tensor, k: int) -> torch.Tensor:
+    """Sample k's chain seeds: seed + k*WEYL in uint32, as int32 bits."""
+    s = (seeds.to(torch.int64) + k * WEYL) & 0xFFFFFFFF
+    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
+
+
 def scene(name: str, width: int, height: int, device):
     """The tool's scene `name` at width x height."""
     if name == "default":
@@ -161,12 +230,13 @@ SCENES = {"default": (1920, 1080), "stress": (1280, 720),
           "maze": (1280, 720), "ptrace": (1920, 1080)}
 
 
-def profile(sc, device):
-    """The scene's frame through the profile instance: (fb, dist, tstep
-    [n_waves, n])."""
+def profile(sc, device, k: int = 0):
+    """The scene's frame through the profile instance, on sample k's
+    seeds: (fb, dist, tstep [n_waves, n])."""
     ifrom, rays, seeds = frame_rays(sc.cfg, *sc.frame_args(0)[:4], device)
-    return tracer.trace_wave_profile(sc.tworld, sc.cfg, ifrom, rays, seeds,
-                                     SEC, page0=sc.cfg.cam_page)
+    return tracer.trace_wave_profile(sc.tworld, sc.cfg, ifrom, rays,
+                                     sample_seeds(seeds, k), SEC,
+                                     page0=sc.cfg.cam_page)
 
 
 def main(argv=None) -> int:
@@ -189,6 +259,11 @@ def main(argv=None) -> int:
                                  if dev.type == "cuda" else dev.type),
                          **all_stats(tstep.cpu().numpy(), h, w,
                                      max(1, sc.cfg.step_chunk)))
+        if name == "ptrace":
+            ts = [tstep.cpu().numpy()] + [
+                profile(sc, args.device, k)[2].cpu().numpy()
+                for k in range(1, SAMPLES)]
+            res[name]["samples"] = samples_stats(ts, h, w)
         print(json.dumps({name: res[name]}), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

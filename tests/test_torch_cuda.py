@@ -31,7 +31,14 @@ Each warp of the tracer takes an 8x4-pixel tile: every rendering
 instance equals the plain tracer at ragged shapes (and where the width
 does not divide n, in the flat order), as do two launches in a row and
 launches on two streams at once; the fast instances keep no unwind
-record on the stack and spill nothing."""
+record on the stack and spill nothing.  The launch route (`_launch`):
+add_one, dof_blur and trace_wave (one-chain and samples instances) on
+a side stream and replayed from a CUDA graph equal plain, and an entry
+that refuses its arguments raises.  The samples instances, which shade
+the primary segment once for all chains, equal plain at ragged shapes,
+samples 2, 3 and 5 and reflect 0, 1 and 6, on the paged maze and on two
+streams at once; the one-chain instances compile to the registers and
+spills they had before."""
 
 import dataclasses
 import re
@@ -596,7 +603,129 @@ def test_instances_at_ragged_shapes(dev, instance, w, h, width):
     assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
 
 
-@pytest.mark.parametrize("instance", ["fast", "samples", "fused", "parity"])
+@pytest.mark.parametrize("reflect", [0, 1, 6])
+@pytest.mark.parametrize("samples", [2, 3, 5])
+@pytest.mark.parametrize("w,h", [(34, 17), (1, 1)])
+@pytest.mark.parametrize("parity", [False, True])
+def test_samples_instances_at_ragged_shapes(dev, parity, w, h, samples,
+                                            reflect):
+    """The two samples instances, which shade the primary segment once
+    and run every sample's chain from that shading, on the demo level
+    with the creature's spheres in view (the flagship scene in fast
+    mode, the parity scene in parity mode) at ragged tiles (34x17) and
+    one ray: bit-equal to the plain tracer at every sample count and
+    depth (reflect 0: no chain bounces)."""
+    make = parity_scene if parity else flagship_scene
+    sc = make(w, h, dev, samples=samples, reflect=reflect)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True)
+    assert _delta(before) == ((0, 0, 0, 0, 1, 0, 0, 0, 0) if parity
+                              else (0, 0, 1, 0, 0, 0, 0, 0, 0))
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_samples_instances_on_the_paged_maze(dev, parity):
+    """Both samples instances on the paged maze at 34x17 from its
+    portal camera, samples 2: bit-equal to the plain tracer."""
+    sc = maze_scene(34, 17, dev, parity=parity, samples=2)
+    sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    page0 = sc.cfg.cam_page
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
+def test_side_stream_and_graph_capture(dev):
+    """Every launch route on a side stream and captured into a CUDA
+    graph (the capture stream): add_one, dof_blur, and trace_wave in
+    its one-chain instance and in its persistent samples instance, whose
+    tile queue belongs to the stream.  Each equals its plain version
+    after the side-stream launch and after each of two replays; a
+    captured launch counts once, replays never."""
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(65, 128)).astype(np.float32)).to(dev)
+    fl = flagship_scene(64, 32, dev)
+    pt = ptrace_scene(64, 32, dev)
+    ins = {name: _frame_inputs(sc, 1, dev) for name, sc in
+           (("fast", fl), ("samples", pt))}
+    fb0, z0 = tracer.trace_wave_plain(fl.tworld, fl.cfg, *ins["fast"],
+                                      pack=True)
+    fb0, z0 = fb0.view(32, 64), z0.view(32, 64)
+
+    def trace(sc, name):
+        return lambda: tracer.trace_wave(sc.tworld, sc.cfg, *ins[name],
+                                         pack=True)
+    calls = {"add_one": (lambda: probes.add_one(x),
+                         lambda: probes.add_one_plain(x)),
+             "dof_blur": (lambda: blur.dof_blur(fb0, z0),
+                          lambda: blur.dof_blur_plain(fb0, z0)),
+             "fast": (trace(fl, "fast"), lambda: (fb0.view(-1), z0.view(-1))),
+             "samples": (trace(pt, "samples"),
+                         lambda: tracer.trace_wave_plain(
+                             pt.tworld, pt.cfg, *ins["samples"], pack=True))}
+
+    counter = {"add_one": lambda: probes.LAUNCHES_ADD_ONE,
+               "dof_blur": lambda: blur.LAUNCHES,
+               "fast": lambda: tracer.LAUNCHES,
+               "samples": lambda: tracer.LAUNCHES_SAMPLES}
+
+    def bits(out):
+        return [t.view(torch.int32) for t in (
+            out if isinstance(out, tuple) else (out,))]
+
+    def same(a, b):
+        assert all(torch.equal(p, q) for p, q in zip(bits(a), bits(b)))
+
+    for name, (fn, plain) in calls.items():
+        want = plain()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            got = fn()
+        side.synchronize()
+        same(got, want)
+        graph = torch.cuda.CUDAGraph()
+        before = counter[name]()
+        with torch.cuda.graph(graph):
+            out = fn()
+        assert counter[name]() == before + 1, name
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            same(out, want)
+        assert counter[name]() == before + 1, name
+
+
+def test_launch_errors_raise(dev):
+    """A C entry point that refuses its arguments or fails its launch
+    makes the wrapper raise, and later launches still work: vpu_chains at
+    an S with no instance, and a trace deeper than the kernel's wave
+    records."""
+    a = plane(dev)
+    out = torch.empty((1, 8, 128), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        probes._VPU_CHAINS(dev.index, a.data_ptr(), out.data_ptr(), 0, 3, 1,
+                           1, probes.MUL, probes.ADD)
+    sc = flagship_scene(8, 4, dev, reflect=8)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tracer.trace_wave(sc.tworld, sc.cfg, *_frame_inputs(sc, 0, dev),
+                          pack=True)
+    x = torch.ones(64, device=dev)
+    assert torch.equal(probes.add_one(x), x + 1)
+
+
+@pytest.mark.parametrize("instance", ["fast", "samples", "fused", "parity",
+                                      "parity_samples"])
 def test_two_launches_and_two_streams(dev, instance):
     """Two launches in a row on one stream, then one on each of two
     streams at once, of each instance at 480x288: 4,320 tiles, more
@@ -652,8 +781,7 @@ def test_unwind_records_off_the_stack(dev):
     the nowater instance, which calls neither, no stack frame at all; the
     fused instance, in its 128-thread blocks, spills nothing; the
     flagship launch keeps 20 warps an SM resident."""
-    _build.load("tracer", tracer._SIGS)
-    _build.load("tracer_variants", tracer._SIGS_VARIANTS)
+    _build.build_all(["tracer", "tracer_variants"])
     frame, st, ld = _frame_line(_build.PTXAS_LOG["tracer"],
                                 "ILb0ELb0ELb0ELi0ELb1EE")
     assert frame <= 32 and st == ld == 0, (frame, st, ld)
@@ -668,3 +796,37 @@ def test_unwind_records_off_the_stack(dev):
     shape = tracer.launch_shape(flagship_scene(8, 8, dev).cfg, 1920 * 1080,
                                 1920, 1, dev)
     assert shape["blocks_per_sm"] * shape["threads"] == 20 * 32, shape
+
+
+def _registers(log: str, tag: str) -> int:
+    """Registers of the kernel whose mangled name holds tag, from the
+    `-Xptxas -v` report."""
+    on = False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            on = tag in ln
+        elif on and "registers" in ln:
+            return int(re.search(r"Used (\d+) registers", ln).group(1))
+    raise AssertionError(f"no ptxas report for {tag}:\n{log}")
+
+
+# The rendering instances with S = false (one chain a ray), as ptxas
+# reported them before the samples instances' redesign (nvcc 12.8 for
+# sm_90a; registers, stack frame, spill stores, spill loads): the
+# redesign keeps their code.  ILb1ELb0ELb0ELi0ELb1EE, parity with the
+# cell tables in shared memory, is compiled but never launched.
+ONE_CHAIN_PTXAS = {
+    "ILb0ELb0ELb0ELi0ELb1EE": (92, 32, 0, 0),      # fast, one page
+    "ILb0ELb0ELb0ELi0ELb0EE": (92, 32, 0, 0),      # fast, paged
+    "ILb0ELb0ELb1ELi0ELb1EE": (116, 32, 0, 0),     # fused, one page
+    "ILb0ELb0ELb1ELi0ELb0EE": (114, 32, 0, 0),     # fused, paged
+    "ILb1ELb0ELb0ELi0ELb1EE": (83, 0, 0, 0),       # parity, tables T
+    "ILb1ELb0ELb0ELi0ELb0EE": (84, 0, 0, 0),       # parity
+}
+
+
+def test_one_chain_instances_compile_as_before(dev):
+    _build.build_all(["tracer"])
+    log = _build.PTXAS_LOG["tracer"]
+    for tag, want in ONE_CHAIN_PTXAS.items():
+        assert (_registers(log, tag), *_frame_line(log, tag)) == want, tag
