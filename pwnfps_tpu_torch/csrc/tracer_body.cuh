@@ -48,15 +48,16 @@
 //   * fused (entry pwnfps_trace with fused = 1; run_fused of
 //     tracer_core.py:1592, which the TPU kernel runs inside _kernel when
 //     RenderConfig.fused is set, tracer_pallas.py:650): fast mode, one
-//     sample, one page or paged.  A thread marches, shades and restarts
-//     its own ray in one loop: a segment that terminates is shaded at the
-//     start of the next iteration and, if it bounces, restarted on its
-//     bounce ray and stepped in that iteration; the unwind blend becomes a
-//     forward affine col = acc_a + acc_b * child.  The loop ends when the
-//     colour is final, or at the cap maxsteps * n_waves + 8 * n_waves
-//     rounded up to step_chunk, after which a death not yet processed is
-//     shaded once more.  A fifth instance (F = true) of the same march,
-//     step body and shading;
+//     sample, one page or paged.  run_fused shades a segment that ended
+//     at the start of its lane's next iteration and steps the restart in
+//     that iteration, so a lane's bits depend only on its own iteration
+//     count: each lane here marches its segment to its end counting those
+//     iterations, the warp's lanes shade together, and the unwind blend
+//     is a forward affine col = acc_a + acc_b * child.  A lane ends when
+//     its colour is final, or at the cap maxsteps * n_waves + 8 * n_waves
+//     rounded up to step_chunk, held per lane (a segment ending on the
+//     last iteration is still shaded).  A fifth instance (F = true) of
+//     the same march, step body and shading;
 //   * the measurement instances (V != VAR_NONE; entry
 //     pwnfps_trace_variant of tracer_variants.cu): fast mode, one sample,
 //     unfused, one page or paged, one instance a variant, each the TPU
@@ -123,8 +124,9 @@
 //   * 320-thread blocks, two an SM: 20 warps at 92 registers with no
 //     spill, the fastest budget without one (24 warps at 80 registers
 //     spill 28 bytes).  The fused loop keeps 128-thread blocks and its
-//     116 registers (Block<F>): capped at 96 it spilled and ran slower
-//     on the portal chain and at 320x180;
+//     116 registers (Block<F>): in 320-thread blocks it fits 96 with no
+//     spill and is 3% faster at 1080p, but 10-12% slower on the 720p
+//     portal chain and at 320x180;
 //   * the samples instances shade the primary segment once a pixel
 //     (3% off config #5's frame in parity mode) and, in fast mode, take
 //     each sphere's two square roots at a segment's start only where its
@@ -137,7 +139,17 @@
 //     refill off the queue 3.8x: every pixel there shades 25 segments,
 //     which lockstep chains shade all lanes at once and desynchronised
 //     lanes do not.
-// Sphere records sit in shared memory in every instance.
+//   * the fused loop: each lane marches its segment to its end, then the
+//     warp shades all lanes together, once a segment, as chain() does
+//     (1.19x faster at 1080p than shading each lane at the start of its
+//     next iteration, which ran the shading once for every iteration in
+//     which some lane of the warp ended a segment).  Compacting the rays
+//     that bounce into a block-wide queue between waves ran 6-17%
+//     slower: every ray of the flagship, portal chain and maze frames
+//     lives through every wave (tools/occupancy.py), so it drops no lane
+//     and pays a block barrier a wave (PERF.md).
+// Sphere records sit in shared memory in every instance, NSPH_MAX of
+// them (4 KB) a block.
 //
 // Numerics: build with --fmad=false, -prec-div=true, -prec-sqrt=true and
 // -ftz=false (_build.py) so a*b+c rounds twice, as on the TPU and in
@@ -180,7 +192,9 @@ constexpr int C_CEIL = 0, C_FLOOR = 1, C_WALL = 2, C_MAGENTA = 3;
 constexpr float EPS = 1e-13f;            // core/config.py EPSILON
 constexpr float FIRE_NONE = 3.0e38f;
 constexpr float PI_F = 3.14159265358979323846f;
-constexpr int NSPH_MAX = 16;
+// spheres a world may hold: the object pool's NS_MAX
+// (world/objects.py), all of which the JAX package's jnp backend traces
+constexpr int NSPH_MAX = 64;
 constexpr int SPH_COLS = 16;
 // sphere-record columns (ops/world.py)
 constexpr int SX = 0, SY = 1, SZ = 2, SR = 3, SREFL = 4, SCB = 5,
@@ -190,8 +204,8 @@ constexpr int MAX_WAVES = 8;
 constexpr int WARP = 32;
 // Threads a block and the blocks an SM that __launch_bounds__ keeps
 // resident: 320 x 2, 20 warps at 96 registers or fewer.  The fused loop
-// keeps its earlier 128 x 1 (116 registers, no spill), which measured
-// faster for it on the 720p portal chain and at 320x180 (PERF.md).
+// keeps 128 x 1 (116 registers, no spill), which measured faster for it
+// on the 720p portal chain and at 320x180 (PERF.md).
 template <bool F>
 struct Block {
     static constexpr int threads = F ? 128 : 320;
@@ -1417,15 +1431,15 @@ __device__ __forceinline__ void chain_from(const World& w, const Params& a,
 }
 
 // The fused wave loop (tracer_core.run_fused, _process_deaths), fast mode,
-// one sample, for the ray from (fx, fy, fz) along (rx, ry, rz): col gets
-// the final colour (0 if the cap cut it short), dist0 the primary
-// segment's distance.
+// one sample: the state a ray carries from one segment to the next.  The
+// unwind blend is carried forward as an affine, col = acc_a + acc_b *
+// child; a final colour is composed into acc_a.
 struct Fused {
     int wave = 0;                       // segment index (0: the primary)
+    int it = 0;                         // iterations of run_fused's loop
     uint32_t seed;
     float icol[4] = {1.0f, 1.0f, 1.0f, 1.0f};
     float acc_a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc_b = 1.0f;
-    float col[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     float dist0 = 0.0f;
     bool done = false;
 };
@@ -1442,7 +1456,8 @@ __device__ __forceinline__ void fused_death(const World& w, const Params& a,
     if (f.wave == 0) f.dist0 = s.cdist;
     const float base[4] = {o.b, o.g, o.r, o.a};
     if (!o.bounce) {
-        for (int c = 0; c < 4; ++c) f.col[c] = f.acc_a[c] + base[c] * f.acc_b;
+        for (int c = 0; c < 4; ++c)
+            f.acc_a[c] = f.acc_a[c] + base[c] * f.acc_b;
         f.done = true;
         return;
     }
@@ -1464,36 +1479,43 @@ __device__ __forceinline__ void fused_death(const World& w, const Params& a,
     ++f.wave;
 }
 
+// The fused loop of the ray from (fx, fy, fz) along (rx, ry, rz): col
+// gets its final colour (0 if the cap cut it short).  run_fused steps a
+// lane in every iteration it is live and shades a segment that ended at
+// the start of the next iteration, so a lane's result depends only on
+// its own iteration count.  Here each lane marches its segment to its
+// end, counting run_fused's iterations (f.it), and the warp's lanes then
+// shade together, once a segment, as the one-chain instances do: the
+// same bits, with the cap maxsteps * n_waves + 8 * n_waves rounded up to
+// step_chunk held per lane.  A segment the cap cuts is never shaded; one
+// that ends on the last iteration is shaded (the drain) and its restart
+// never steps.
 template <bool T>
 __device__ __forceinline__ void fused(const World& w, const Params& a,
                                       float fx, float fy, float fz,
                                       float rx, float ry, float rz,
-                                      Fused& f) {
+                                      Fused& f, float col[4]) {
     Seg s;
     start<false, T>(w, a, s, fx, fy, fz, rx, ry, rz, a.page0);
     const int n_waves = a.reflect + 1;
     const int chunk = max(a.step_chunk, 1);
     const int cap = a.maxsteps * n_waves + 8 * n_waves;
     const int n_it = (cap + chunk - 1) / chunk * chunk;
-    int segsteps = 0;
-    bool dead = false;
-    for (int it = 0; it < n_it; ++it) {
-        if (dead) {
-            fused_death<T>(w, a, s, f);
-            dead = false;
-            segsteps = 0;
+    while (true) {
+        for (int segsteps = 0; s.active && f.it < n_it;) {
+            segment_body<false, VAR_NONE, T>(w, s);
+            ++f.it;
+            // the per-segment step budget -> sky (trace.h:247,678)
+            if (s.active && ++segsteps >= a.maxsteps) {
+                s.tmeta = T_SKY;
+                s.active = false;
+            }
         }
-        if (f.done) break;
-        segment_body<false, VAR_NONE, T>(w, s);
-        ++segsteps;
-        // the per-segment step budget -> sky (trace.h:247,678)
-        if (s.active && segsteps >= a.maxsteps) {
-            s.tmeta = T_SKY;
-            s.active = false;
-        }
-        dead = !s.active;
+        if (s.active) break;            // cut by the cap: not shaded
+        fused_death<T>(w, a, s, f);
+        if (f.done || f.it >= n_it) break;
     }
-    if (dead) fused_death<T>(w, a, s, f);   // the drain: never stepped
+    for (int c = 0; c < 4; ++c) col[c] = f.done ? f.acc_a[c] : 0.0f;
 }
 
 // Trace ray i and write its packed colour and primary distance.  S:
@@ -1514,8 +1536,7 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
         Fused f;
         f.seed = seed;
         fused<T>(w, a, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i],
-                 f);
-        for (int j = 0; j < 4; ++j) col[j] = f.col[j];
+                 f, col);
         dist0 = f.dist0;
     } else if constexpr (S) {
         Seg s;

@@ -44,7 +44,8 @@ from . import worlddev as W
 SX, SY, SZ, SR, SREFL, SCB, SCG, SCR = range(8)
 SBX1, SBX2, SBZ1, SBZ2, SRAD2, SINVR2 = range(8, 14)
 SPH_COLS = 16
-NSPH_MAX = 16          # sphere capacity of the CUDA kernel (as the TPU's)
+NSPH_MAX = 64          # sphere capacity: world/objects.py NS_MAX, as the
+                       # JAX package's jnp backend traces them
 
 
 def decode_word_np(w: np.ndarray, paged: bool = False) -> np.ndarray:

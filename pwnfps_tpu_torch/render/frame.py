@@ -111,10 +111,10 @@ def render_accumulated(world: TorchWorld, meta: WorldMeta,
     """Distribution path tracing (pwnfps_tpu/render/frame.py:186-218):
     the mean of `samples` chains a pixel, whose reflect jitter draws from
     the seed streams pixel_seed + k*0x9E3779B9, sharing the primary wave.
-    Fast mode, or parity mode (cfg.parity) on a one-page world, where
-    each chain is the pixel-exact parity chain.  Returns (fb [h, w] int32 BGRA of the mean, zbuf
-    [h, w] of the primary wave), with cfg.postproc_blur DoF passes on
-    that zbuf."""
+    Fast mode or parity mode (cfg.parity, where each chain is the
+    pixel-exact parity chain), on a one-page or a paged world.  Returns
+    (fb [h, w] int32 BGRA of the mean, zbuf [h, w] of the primary wave),
+    with cfg.postproc_blur DoF passes on that zbuf."""
     return render_frame(world, meta, dataclasses.replace(cfg,
                                                          samples=samples),
                         origin, rayb, rdx, rdy, sec)

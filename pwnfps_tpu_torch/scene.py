@@ -51,6 +51,12 @@ BASELINE config #2 (benchmarks/configs.py:165-171, rendered by
     atlas, each portal leading to the next page, so that a paged frame
     can be held bit for bit against the one-page chain's.
 
+Up to 64 spheres, the object pool's capacity (world/objects.py NS_MAX):
+
+  * `spheres_scene`: the demo level with `sphere_grid(n)`, n small
+    spheres in open cells in front of the spawn camera, fast mode (or
+    parity mode) with the flagship's camera path.
+
 `mesh_for` gives the device mesh the multi-device path
 (parallel/sharding.py) renders these scenes on: by default one card
 repeated, a virtual mesh.
@@ -136,12 +142,10 @@ def creature_pool(n: int = len(CREATURE), at=CREATURE_AT) -> ObjectPool:
     return pool
 
 
-def _demo_scene(device, n_spheres: int, cfg: RenderConfig,
-                yaw_step: float, sec_step: float,
-                at=CREATURE_AT) -> Scene:
+def _demo_scene(device, pool: ObjectPool, cfg: RenderConfig,
+                yaw_step: float, sec_step: float) -> Scene:
     lv = load_level(LEVEL)
-    sph = creature_pool(n_spheres, at).prepare_render()
-    world, meta = W.build_world(lv, sph, SseTables.load())
+    world, meta = W.build_world(lv, pool.prepare_render(), SseTables.load())
     cam = mat4_identity()
     sx, sz = lv.spawn
     cam[3, :3] = (sx + 0.5, 0.5, sz + 0.5)
@@ -155,7 +159,7 @@ def flagship_scene(width: int, height: int, device="cuda",
     """The bench frame at width x height on `device`; cfg_kw override
     RenderConfig fields (e.g. maxsteps for a small test)."""
     cfg = RenderConfig(width=width, height=height, parity=False, **cfg_kw)
-    return _demo_scene(device, n_spheres, cfg, 0.07, 0.016)
+    return _demo_scene(device, creature_pool(n_spheres), cfg, 0.07, 0.016)
 
 
 def parity_scene(width: int = 320, height: int = 240, device="cuda",
@@ -163,7 +167,7 @@ def parity_scene(width: int = 320, height: int = 240, device="cuda",
     """BASELINE config #1's frame (configs.py:128: parity, reflect=2,
     one DoF pass) on the demo level, at width x height on `device`."""
     cfg = RenderConfig(width=width, height=height, parity=True, **cfg_kw)
-    return _demo_scene(device, n_spheres, cfg, 0.8, 0.4)
+    return _demo_scene(device, creature_pool(n_spheres), cfg, 0.8, 0.4)
 
 
 def ptrace_scene(width: int = 1920, height: int = 1080, device="cuda",
@@ -174,7 +178,43 @@ def ptrace_scene(width: int = 1920, height: int = 1080, device="cuda",
     fields.  Render it with render_accumulated (samples=cfg.samples)."""
     kw = {"reflect": 6, "samples": 4, "postproc_blur": 1, **cfg_kw}
     cfg = RenderConfig(width=width, height=height, parity=parity, **kw)
-    return _demo_scene(device, 6, cfg, 0.05, 0.016, CONFIGS_AT)
+    return _demo_scene(device, creature_pool(6, CONFIGS_AT), cfg, 0.05,
+                       0.016)
+
+
+def sphere_grid(n: int = 64) -> list[tuple]:
+    """n spheres (x, y, z, r, b, g, r, reflectance) of radius 0.05 in
+    open cells of the demo level in front of its spawn point: sphere k
+    < 20 at (2.5 + k%5, 0.3, 3.5 + k//5), then, 20 a layer, the same 5x4
+    cells at y 0.7 and at (+0.25, 0.5, +0.25), and the last four in
+    column x 1.5.  Their colours and reflectances differ from one sphere
+    to the next, so that a wrong sphere index changes a pixel."""
+    out = []
+    for k in range(n):
+        layer, j = divmod(k, 20)
+        if layer < 3:
+            dx, y, dz = ((0.0, 0.3, 0.0), (0.0, 0.7, 0.0),
+                         (0.25, 0.5, 0.25))[layer]
+            x, z = 2.5 + j % 5 + dx, 3.5 + j // 5 + dz
+        else:
+            x, y, z = 1.5, 0.3, 3.5 + j
+        out.append((x, y, z, 0.05, 0.2 + 0.8 * (k % 7) / 6,
+                    0.2 + 0.8 * (k % 5) / 4, 0.2 + 0.8 * (k % 3) / 2,
+                    0.1 + 0.1 * (k % 6)))
+    return out
+
+
+def spheres_scene(n_spheres: int = 64, width: int = 32, height: int = 24,
+                  device="cuda", **cfg_kw) -> Scene:
+    """The demo level with sphere_grid(n_spheres) at width x height on
+    `device`, the flagship's camera path; cfg_kw override RenderConfig
+    fields (parity=True: parity mode)."""
+    pool = ObjectPool()
+    for (x, y, z, r, b, g, rr, refl) in sphere_grid(n_spheres):
+        pool.obj_set_sphere(pool.obj_new(), r, refl, x, y, z, b, g, rr)
+    cfg = RenderConfig(width=width, height=height,
+                       **{"parity": False, **cfg_kw})
+    return _demo_scene(device, pool, cfg, 0.07, 0.016)
 
 
 def multicam_scene(device="cuda", n_cams: int = 64, **cfg_kw) -> Scene:
@@ -183,8 +223,8 @@ def multicam_scene(device="cuda", n_cams: int = 64, **cfg_kw) -> Scene:
     cfg_kw override RenderConfig fields (width and height included).
     Step it with step_args and render_cameras."""
     kw = {"width": 160, "height": 120, "postproc_blur": 0, **cfg_kw}
-    sc = _demo_scene(device, 6, RenderConfig(parity=False, **kw), 0.0, 0.1,
-                     CONFIGS_AT)
+    sc = _demo_scene(device, creature_pool(6, CONFIGS_AT),
+                     RenderConfig(parity=False, **kw), 0.0, 0.1)
     cams = []
     for k in range(n_cams):
         c = sc.cam.copy()

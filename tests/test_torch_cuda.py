@@ -23,8 +23,8 @@ equals the plain parity tracer and render_accumulated(parity) launches it
 once; the fast tracer equals the plain one on the portal chain (config
 #2); the probe kernels add_one and vpu_chains equal their plain
 versions.  Phases 15-16, small: the fused instance equals the plain
-fused loop (flagship, portal chain, paged maze) and its zbuf the unfused
-kernel's; the parity instances on the paged maze equal the plain parity
+fused loop (flagship, portal chain, paged maze, 64 spheres) and its zbuf
+the unfused kernel's; the parity instances on the paged maze equal the plain parity
 tracer on the card (and on the host), and the parity frame of the chain
 on three pages equals the one-page chain's, kernel against kernel.
 Each warp of the tracer takes an 8x4-pixel tile: every rendering
@@ -38,7 +38,8 @@ that refuses its arguments raises.  The samples instances, which shade
 the primary segment once for all chains, equal plain at ragged shapes,
 samples 2, 3 and 5 and reflect 0, 1 and 6, on the paged maze and on two
 streams at once; the one-chain instances compile to the registers and
-spills they had before."""
+spills they had before.  Phase 20, small: a world of 64 spheres, the
+object pool's capacity, through each rendering instance equals plain."""
 
 import dataclasses
 import re
@@ -58,7 +59,7 @@ from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
 from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene, mesh_for,
                                     multicam_scene, parity_scene,
                                     portal_camera, ptrace_scene,
-                                    ring_scene, stress_scene)
+                                    ring_scene, spheres_scene, stress_scene)
 from pwnfps_tpu_torch.tools.vpu_probe import plane
 
 pytestmark = pytest.mark.cuda
@@ -415,12 +416,16 @@ def test_probe_kernels_match_plain(dev):
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("world", ["flagship", "stress", "maze"])
+@pytest.mark.parametrize("world", ["flagship", "stress", "maze",
+                                   "spheres64"])
 def test_fused_kernel_matches_plain(dev, world):
-    """96x54 fused frames: the fused instance against the plain fused
+    """96x54 fused frames (the flagship, the portal chain, the paged maze
+    and the 64-sphere world): the fused instance against the plain fused
     loop bit for bit, its zbuf against the unfused kernel's."""
     if world == "flagship":
         sc = flagship_scene(96, 54, dev, fused=True)
+    elif world == "spheres64":
+        sc = spheres_scene(64, 96, 54, dev, fused=True)
     elif world == "stress":
         sc = stress_scene(96, 54, dev, fused=True)
     else:
@@ -444,6 +449,34 @@ def test_fused_kernel_matches_plain(dev, world):
     render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(1))
     torch.cuda.synchronize()
     assert _delta(before) == (0, 0, 0, 0, 0, 1, 0, 1, 0)
+
+
+# each rendering instance's RenderConfig fields on a one-page world, and
+# the position of its launch counter in _counts()
+INSTANCE_CFG = {"fast": ({}, 0), "samples": ({"samples": 2}, 2),
+                "parity": ({"parity": True}, 3),
+                "parity_samples": ({"parity": True, "samples": 2}, 4),
+                "fused": ({"fused": True}, 7)}
+
+
+@pytest.mark.parametrize("instance", list(INSTANCE_CFG))
+def test_64_sphere_instances_match_plain(dev, instance):
+    """The world of 64 spheres, the object pool's capacity
+    (scene.spheres_scene), through each rendering instance at 96x54 on
+    the second frame of its camera path: one launch of the instance,
+    bit-equal to the plain tracer."""
+    kw, slot = INSTANCE_CFG[instance]
+    sc = spheres_scene(64, 96, 54, dev, **kw)
+    assert sc.tworld.n_spheres == 64
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    before = _counts()
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True)
+    assert _delta(before) == tuple(int(k == slot) for k in range(9))
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
 
 
 @pytest.mark.parametrize("view,samples", [("portal", 1), ("path", 1),
