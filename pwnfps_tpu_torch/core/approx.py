@@ -49,6 +49,41 @@ class SseTables:
         return cls(raw[4:4 + 8192], raw[4 + 8192:4 + 8192 + 4096])
 
 
+# The compact form of the tables that the CUDA kernel keeps in shared
+# memory (csrc/tracer_body.cuh rsq_emu, rcp_emu): every entry of the
+# host's dump has exponent 126 and its low 11 mantissa bits zero, rsqrt
+# entries repeat in aligned groups of 4 and rcp entries in groups of 2,
+# so 12 bits a group rebuild them.  COMPACT_RSQ entries for rsqrt
+# (exponent parity p, then i >> 2), then COMPACT_RCP for rcp (i >> 1).
+COMPACT_RSQ, COMPACT_RCP = 2048, 2048
+_HALF_BITS = 0x3F000000        # 0.5: sign 0, exponent 126
+
+
+def compact_tables(rsqrt: np.ndarray, rcp: np.ndarray) -> np.ndarray:
+    """The [COMPACT_RSQ + COMPACT_RCP] uint16 compact form of the rsqrt
+    [8192] and rcp [4096] tables (uint32 bits): R then C, 12-bit values,
+    with rsqrt[p * 4096 + i] == 0x3F000000 | (R[p * 1024 + (i >> 2)] << 11)
+    and rcp[i] == 0x3F000000 | (C[i >> 1] << 11).  ValueError when a table
+    lacks that structure (an exponent other than 126, a nonzero low
+    mantissa bit, or a group that does not repeat)."""
+    out = []
+    for name, tab, n, group in (("rsqrt", rsqrt, 8192, 4),
+                                ("rcp", rcp, 4096, 2)):
+        t = np.asarray(tab)
+        if t.shape != (n,):
+            raise ValueError(f"{name} table shape {t.shape}, want ({n},)")
+        t = t.astype(np.uint32)
+        if np.any(t & ~np.uint32(0x7FF800) != _HALF_BITS):
+            raise ValueError(f"{name} table: an entry is not 0x3F000000 | "
+                             "(12 bits << 11)")
+        g = t.reshape(-1, group)
+        if np.any(g != g[:, :1]):
+            raise ValueError(f"{name} table: a group of {group} entries "
+                             "does not repeat")
+        out.append((g[:, 0] >> 11) & 0xFFF)
+    return np.concatenate(out).astype(np.uint16)
+
+
 def _split(x: torch.Tensor):
     """(biased exponent incl. the sign bit, mantissa) of f32 x, as the
     JAX package's numpy path takes them from the uint32 bits."""

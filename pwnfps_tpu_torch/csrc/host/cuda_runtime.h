@@ -1,0 +1,59 @@
+// What csrc/tracer_body.cuh takes from the CUDA runtime, for a host C++
+// compiler (tools/host_trace.py): the qualifiers vanish, the intrinsics
+// become their host meaning (__fdiv_rn and __fsqrt_rn the host's IEEE
+// round-to-nearest-even division and root), one thread, one lane, and
+// the runtime's calls are declared, never defined: the host build calls
+// no launch path.
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#define __device__
+#define __global__
+#define __host__
+#define __shared__
+#define __constant__
+#define __forceinline__ inline
+#define __noinline__
+#define __align__(n)
+#define __launch_bounds__(...)
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9, cudaErrorInvalidDevice = 101,
+       cudaErrorMisalignedAddress = 716 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+struct dim3 { unsigned x, y, z; };
+extern dim3 threadIdx, blockIdx, blockDim, gridDim;
+cudaError_t cudaGetDevice(int*);
+cudaError_t cudaGetLastError();
+template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int);
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, K, int,
+                                                          size_t);
+cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
+template <class T> T __ldg(const T* p) { return *p; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline float __int_as_float(int u) { float f; memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline int __float_as_int(float f) { int u; memcpy(&u, &f, 4); return u; }
+inline int __float2int_rz(float f) { return (int)f; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline long long clock64() { return 0; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+inline int __ffs(unsigned m) { return m ? __builtin_ctz(m) + 1 : 0; }
+inline unsigned __activemask() { return 1; }
+template <class T> T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
+template <class T> T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
+template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
+inline void __syncthreads() {}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
+inline void __threadfence() {}

@@ -28,15 +28,15 @@ int launch(const Params& a, void* stream) {
 // and word [n_pages * 4096], sph, bound); every ray starts on page page0;
 // samples bounce chains a ray, inv = f32(1 / samples); fused = 1 runs the
 // fused wave loop (samples must be 1), its cap checked every step_chunk
-// iterations.  Parity mode (parity 1, persistent warps on the queue) also
-// reads the bucket table [n_pages * 4096 * k_bucket] i32 and the SSE
-// rsqrt [8192] and rcp [4096] tables (uint32 bits), and ignores bound,
-// skip and slack.  Output: out_fb i32 [n] packed BGRA of the chains' mean
+// iterations.  Parity mode (parity 1) also reads the bucket table
+// [n_pages * 4096 * k_bucket] i32 and the SSE tables' compact form sse
+// [4096] u16 (core/approx.py compact_tables; 16-byte aligned), and
+// ignores bound, skip and slack.  Output: out_fb i32 [n] packed BGRA of the chains' mean
 // and out_dist f32 [n] primary-wave distance.  width: the rays are a
 // row-major image this wide (each warp traces an 8x4-pixel tile of it),
 // or 0 (each warp 32 consecutive rays); queue: i32 [2] of zeros that only
-// launches on `stream` use, from which the persistent instances (parity,
-// samples, fused) take tiles and which they leave zero.  Launches on
+// launches on `stream` use, from which the persistent instances (samples
+// in either mode, fused) take tiles and which they leave zero.  Launches on
 // `stream`; returns cudaGetLastError().  With query set, what the launch
 // would take on the current device goes to query i32 [4]: the dynamic
 // shared memory bytes a block, the resident blocks an SM, the threads a

@@ -29,18 +29,21 @@
 //     mean: a second instance of the same template (S = true), so
 //     samples = 1 keeps its code;
 //   * parity (entry pwnfps_trace with parity set; the TPU kernel's
-//     _parity_math,
-//     tracer_pallas.py:446, and _sphere_pass_pallas, :491): unit steps,
-//     the reference's per-cell sphere-bucket scan, and bit-exact math -
-//     the SSE rsqrt/rcp tables (core/approx.py), integer-exact division
-//     and sqrt (core/ieee.py) and the pinned libm (core/detmath.py), all
-//     in integer ops and single IEEE adds and multiplies, so its bits
-//     depend on no device math library: it equals the plain parity
-//     tracer, which the CPU tests hold bit for bit to the scalar spec
-//     ops/tracer_ref.ScalarTracer(pinned=True).  With samples > 1 the
-//     parity march runs once and each sample's parity chain runs from
-//     it, as in fast mode: a fourth instance (P = S = true), whose SSE
-//     tables stay in shared memory across the chains.  Both parity
+//     _parity_math, tracer_pallas.py:446, and _sphere_pass_pallas,
+//     :491): unit steps (parity_step), the reference's per-cell
+//     sphere-bucket scan, and bit-exact math - the SSE rsqrt/rcp tables
+//     (core/approx.py, in their 8 KB compact form), IEEE
+//     round-to-nearest-even division and square root (__fdiv_rn,
+//     __fsqrt_rn: the bits of core/ieee.py's integer div_rn and sqrt_rn,
+//     which csrc/ieee_check.cu holds them to on the card) and the pinned
+//     libm (core/detmath.py), in integer ops and single IEEE operations,
+//     so its bits depend on no device math library's approximations: it
+//     equals the plain parity tracer, which the CPU tests hold bit for
+//     bit to the scalar spec ops/tracer_ref.ScalarTracer(pinned=True).
+//     With samples > 1 the parity march runs once and each sample's
+//     parity chain runs from it, as in fast mode: a fourth instance
+//     (P = S = true), whose SSE tables stay in shared memory across the
+//     chains.  Both parity
 //     instances take paged worlds as the fast ones do (the paged branch of
 //     _sphere_pass_pallas, :502-504): the bucket scan reads the ray's
 //     page of the [n_pages * 4096 * k_bucket] bucket table, and only
@@ -68,8 +71,10 @@
 //     :1082, pad64 .. cmp64 :1217-1290).  A pad's result replaces fog or
 //     tmeta only where cdist > -1e30f is false, which the compiler cannot
 //     know is never, so the pad is computed and the bits stay those of
-//     the base instance.  Each `if constexpr` on V compiles away in the
-//     other instances, so they keep their code.
+//     the base instance.  One more, phases (VAR_PHASES), is parity mode's
+//     one-chain instance with clock64() counters around its regions
+//     (phase_add), for tools/phase_split.py.  Each `if constexpr` on V
+//     compiles away in the other instances, so they keep their code.
 //
 // What bounds it on the H100: issue and latency, not bandwidth.  A ray's
 // work is a data-dependent loop (a few steps for a wall hit, up to the
@@ -89,11 +94,14 @@
 // (whether it bounces, the bounce origin, the mirrored ray, the end page)
 // in registers across the chains, and each chain begins with the jitter.
 //
-// Parity mode adds integer work: a 27-step restoring division and two
-// 25-step square roots per bucket slot a lane's ray hits, and table
-// gathers for every rsqrt and rcp.  The two tables (48 KB) sit in shared
-// memory, loaded once per block: their index is data dependent, so
-// __constant__ memory would serialise a warp's lookups.
+// Parity mode adds the bucket scan's slot tests and a table gather for
+// every rsqrt and rcp.  The two tables sit in shared memory in their
+// compact form, 8 KB (every entry is 0x3F000000 | (12 bits << 11), one
+// a group of 4 or 2 equal entries; core/approx.py compact_tables),
+// loaded once a block by a bulk copy: their index is data dependent, so
+// __constant__ memory would serialise a warp's lookups.  Its division
+// and roots are the card's IEEE ones, a few instructions each (the
+// integer emulations are 27- and 25-step loops).
 //
 // Design.  Each thread traces one ray to the end of its chain and unwinds
 // it backward (tracer_core.py:1795-1801); the TPU kernel's tile-uniform
@@ -109,13 +117,13 @@
 //     kernel's time, more than the step occupancy alone moves;
 //   * persistent warps: resident blocks whose warps take tiles off an
 //     atomic queue, which the last block to finish resets.  Slower on the
-//     one-chain fast instances, which launch a block for every 10 tiles;
-//     kept for parity (the SSE tables load once a resident block),
-//     samples and fused, whose long chains it balances;
-//   * fast mode's one-page cell tables (32 KB) in shared memory, copied
-//     by two TMA bulk copies completing on an mbarrier: fetch becomes a
-//     shared load.  Paged worlds keep the read-only cache, and so does
-//     parity, where the tables would leave room for one block an SM;
+//     one-chain instances, which launch a block for every 10 tiles (fast)
+//     or 14 (parity); kept for samples and fused, whose long chains it
+//     balances;
+//   * a one-page world's cell tables (32 KB) in shared memory, in both
+//     modes, copied by TMA bulk copies completing on an mbarrier (with
+//     parity's compact SSE tables): fetch becomes a shared load.  Paged
+//     worlds keep the read-only cache;
 //   * the unwind records in shared memory, [wave][record][thread], where
 //     no run-time index sends them to local memory: the stack falls from
 //     224 to 32 bytes, which are the device sinf/cosf's buffer for their
@@ -124,9 +132,17 @@
 //   * 320-thread blocks, two an SM: 20 warps at 92 registers with no
 //     spill, the fastest budget without one (24 warps at 80 registers
 //     spill 28 bytes).  The fused loop keeps 128-thread blocks and its
-//     116 registers (Block<F>): in 320-thread blocks it fits 96 with no
+//     116 registers (Block): in 320-thread blocks it fits 96 with no
 //     spill and is 3% faster at 1080p, but 10-12% slower on the 720p
-//     portal chain and at 320x180;
+//     portal chain and at 320x180.  The one-chain parity instance takes
+//     448-thread blocks, two an SM: 28 warps at 70 registers, no spill
+//     (512 threads spill);
+//   * parity mode's step (parity_step) takes one branch for the one
+//     outcome a lane's step has, where segment_body computes every
+//     outcome's mask and selects among them: with some 30 masks live,
+//     ptxas kept them as bits of a register and a step's common path
+//     ran to about 400 instructions.  About 2x off every parity frame
+//     (PERF.md);
 //   * the samples instances shade the primary segment once a pixel
 //     (3% off config #5's frame in parity mode) and, in fast mode, take
 //     each sphere's two square roots at a segment's start only where its
@@ -173,7 +189,16 @@ namespace {
 // measurement instances (ops/tracer.py VARIANTS has the same values)
 constexpr int VAR_NONE = 0, VAR_NOWATER = 1, VAR_PROFILE = 2, VAR_FIRE1 = 3,
               VAR_FETCH2X = 4, VAR_PAD64 = 5, VAR_PAD64D = 6, VAR_SEL64 = 7,
-              VAR_BOOL128 = 8, VAR_INT128 = 9, VAR_CMP64 = 10;
+              VAR_BOOL128 = 8, VAR_INT128 = 9, VAR_CMP64 = 10,
+              VAR_PHASES = 11;
+// VAR_PHASES's regions (ops/tracer.py PHASES, in this order): the block's
+// prologue, a tile's trace, a segment's march (its start, its steps and
+// their loop), the DDA steps, a wave's shading, the unwind, and the whole
+// kernel; their counters take PHASE_ROWS rows of N_PHASES, a row for each
+// warp modulo PHASE_ROWS
+constexpr int PH_PROLOGUE = 0, PH_TILE = 1, PH_MARCH = 2, PH_STEPS = 3,
+              PH_SHADE = 4, PH_UNWIND = 5, PH_KERNEL = 6, N_PHASES = 7;
+constexpr int PHASE_ROWS = 8192;
 
 // face directions (core/config.py)
 constexpr int FXP = 0, FZP = 1, FXN = 2, FZN = 3, FYP = 4, FYN = 5;
@@ -203,21 +228,27 @@ constexpr int SX = 0, SY = 1, SZ = 2, SR = 3, SREFL = 4, SCB = 5,
 constexpr int MAX_WAVES = 8;
 constexpr int WARP = 32;
 // Threads a block and the blocks an SM that __launch_bounds__ keeps
-// resident: 320 x 2, 20 warps at 96 registers or fewer.  The fused loop
-// keeps 128 x 1 (116 registers, no spill), which measured faster for it
-// on the 720p portal chain and at 320x180 (PERF.md).
-template <bool F>
+// resident, by instance <P, S, F>: 320 x 2, 20 warps at 96 registers or
+// fewer.  The one-chain parity instance takes 448 x 2, 28 warps at 72
+// registers or fewer (70, no spill); the fused loop keeps 128 x 1 (116
+// registers, no spill), which measured faster for it on the 720p portal
+// chain and at 320x180 (PERF.md).  The unwind records' stride is the
+// block's threads.
+template <bool P, bool S, bool F>
 struct Block {
-    static constexpr int threads = F ? 128 : 320;
+    static constexpr int threads = F ? 128 : (P && !S) ? 448 : 320;
     static constexpr int min_blocks = F ? 1 : 2;
     static constexpr int warps = threads / WARP;
 };
-constexpr int BLOCK = Block<false>::threads;   // the unwind records' stride
 constexpr int TILE_W = 8, TILE_H = 4;  // a warp's pixel tile
 constexpr int CELLS = 4096;            // the cells of a page
 constexpr int REC = 6;                 // unwind floats a wave
-// SSE emulation tables (core/approx.py): rsqrt [2 * 4096], rcp [4096]
-constexpr int RSQ_N = 8192, RCP_N = 4096, APPROX_BLOCK = 11;
+// SSE emulation tables (core/approx.py), compact: rsqrt's 12-bit
+// entries R [2 * 1024] (one an aligned group of 4 indices), then rcp's
+// C [2048] (one a group of 2), 16 bits each (compact_tables)
+constexpr int SSE_RCP = 2048, SSE_ENTRIES = 4096, APPROX_BLOCK = 11;
+constexpr int SSE_BYTES = SSE_ENTRIES * 2;
+constexpr uint32_t SSE_HALF = 0x3F000000u;  // every entry's sign, exponent
 
 // palette (b, g, r) per colour id (core/config.py COL_*)
 __constant__ float PAL[4][3] = {{30.0f, 30.0f, 0.0f},
@@ -237,9 +268,59 @@ struct World {
     // parity mode only
     const int32_t* buckets;  // [n_pages * 4096 * k_bucket] ids, -1 pad
     int k_bucket;
-    const uint32_t* rsq_tab; // shared memory
-    const uint32_t* rcp_tab; // shared memory
+    const uint16_t* sse;     // shared memory: the compact SSE tables
+    unsigned long long* phases;  // VAR_PHASES: [PHASE_ROWS, N_PHASES]
 };
+
+// VAR_PHASES: the clock at a region's start, and (phase_add) the warp's
+// lowest active lane adding the cycles since then to region k of its
+// warp's row, so a region counts once a warp each time the warp runs it,
+// whichever lanes take it.  A region run once a step adds into a register
+// instead (phase_lead: the cycles of the runs this lane led), summed over
+// the warp's lanes once a segment (phase_sum).  Nothing in the other
+// instances.
+template <int V>
+__device__ __forceinline__ long long phase_clock() {
+    if constexpr (V == VAR_PHASES) return clock64();
+    return 0;
+}
+
+__device__ __forceinline__ bool warp_leader() {
+    return (int)(threadIdx.x % WARP) == __ffs(__activemask()) - 1;
+}
+
+__device__ __forceinline__ void phase_store(const World& w, int k,
+                                            unsigned long long v) {
+    const unsigned row = (blockIdx.x * blockDim.x + threadIdx.x) / WARP
+        % PHASE_ROWS;
+    atomicAdd(w.phases + row * N_PHASES + k, v);
+}
+
+template <int V>
+__device__ __forceinline__ void phase_add(const World& w, int k,
+                                          long long t0) {
+    if constexpr (V == VAR_PHASES) {
+        const long long dt = clock64() - t0;
+        if (warp_leader()) phase_store(w, k, (unsigned long long)dt);
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void phase_lead(unsigned& acc, long long t0) {
+    if constexpr (V == VAR_PHASES) {
+        const unsigned dt = (unsigned)(clock64() - t0);
+        if (warp_leader()) acc += dt;
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void phase_sum(const World& w, int k,
+                                          unsigned acc) {
+    if constexpr (V == VAR_PHASES) {
+        const unsigned total = __reduce_add_sync(__activemask(), acc);
+        if (warp_leader()) phase_store(w, k, total);
+    }
+}
 
 struct Seg {
     float px, py, pz, rx, ry, rz, ix, iy, iz, wx, wy, wz;
@@ -290,91 +371,28 @@ __device__ __forceinline__ int fetch_word(const World& w, int cx, int cz,
 // core/detmath.py), integer ops and single IEEE adds and multiplies ----
 
 // _mm_rsqrt_ps: table by exponent parity and the top 12 mantissa bits,
-// times 2^-k; the scale's bits wrap in 32 bits as in uint32
+// times 2^-k; the table's entry is 0x3F000000 | (R << 11), one R an
+// aligned group of 4; the scale's bits wrap in 32 bits as in uint32
 __device__ __forceinline__ float rsq_emu(const World& w, float x) {
     const uint32_t bits = __float_as_uint(x);
     const int d = (int)(bits >> 23) - 127;
     const int k = d >> 1;                 // arithmetic: floor(d / 2)
     const int p = d - 2 * k;
-    const float y = __uint_as_float(
-        w.rsq_tab[p * 4096 + (int)((bits & 0x7FFFFFu) >> APPROX_BLOCK)]);
+    const uint32_t r = w.sse[p * 1024 + (int)((bits & 0x7FFFFFu)
+                                              >> (APPROX_BLOCK + 2))];
+    const float y = __uint_as_float(SSE_HALF | (r << APPROX_BLOCK));
     return y * __uint_as_float((uint32_t)(127 - k) << 23);
 }
 
-// _mm_rcp_ps: table by the top 12 mantissa bits, times 2^-k
+// _mm_rcp_ps: table by the top 12 mantissa bits, times 2^-k; one C an
+// aligned group of 2
 __device__ __forceinline__ float rcp_emu(const World& w, float x) {
     const uint32_t bits = __float_as_uint(x);
     const int k = (int)(bits >> 23) - 127;
-    const float y = __uint_as_float(
-        w.rcp_tab[(bits & 0x7FFFFFu) >> APPROX_BLOCK]);
+    const uint32_t c = w.sse[SSE_RCP + (int)((bits & 0x7FFFFFu)
+                                             >> (APPROX_BLOCK + 1))];
+    const float y = __uint_as_float(SSE_HALF | (c << APPROX_BLOCK));
     return y * __uint_as_float((uint32_t)(127 - k) << 23);
-}
-
-// round to nearest even on guard bit g and the sticky flag; returns the
-// f32 bits, or ok = false when the exponent leaves the normal range
-__device__ __forceinline__ uint32_t round_pack(int e, int m24, int g,
-                                               bool sticky) {
-    if (g == 1 && (sticky || (m24 & 1) == 1)) m24 += 1;
-    if (m24 >= (1 << 24)) {
-        m24 >>= 1;
-        e += 1;
-    }
-    return (e > 0 && e < 255)
-        ? ((uint32_t)e << 23) | (uint32_t)(m24 & 0x7FFFFF) : 0xFFFFFFFFu;
-}
-
-// correctly rounded a / b for positive normal f32 (ieee.div_rn): 27-step
-// restoring division of the mantissas; other lanes take IEEE a / b
-__device__ float div_rn(float a, float b) {
-    const int ab = __float_as_int(a), bb = __float_as_int(b);
-    const int ea = (ab >> 23) & 0xFF, eb = (bb >> 23) & 0xFF;
-    const int ma = (ab & 0x7FFFFF) | 0x800000;
-    const int mb = (bb & 0x7FFFFF) | 0x800000;
-    int q = ma >= mb ? 1 : 0;
-    int r = q ? ma - mb : ma;
-#pragma unroll
-    for (int i = 0; i < 27; ++i) {
-        r <<= 1;
-        const int ge = r >= mb ? 1 : 0;
-        if (ge) r -= mb;
-        q = (q << 1) | ge;
-    }
-    const bool big = q >= (1 << 27);
-    const int e = ea - eb + (big ? 127 : 126);
-    const int m24 = big ? q >> 4 : q >> 3;
-    const int g = big ? (q >> 3) & 1 : (q >> 2) & 1;
-    const int low = big ? q & 7 : q & 3;
-    const uint32_t out = round_pack(e, m24, g, low != 0 || r != 0);
-    const bool ok = ea > 0 && ea < 255 && eb > 0 && eb < 255 && ab >= 0
-        && bb >= 0 && out != 0xFFFFFFFFu;
-    return ok ? __uint_as_float(out) : a / b;
-}
-
-// correctly rounded sqrt for positive normal f32 (ieee.sqrt_rn):
-// digit-by-digit root of the mantissa; other lanes take IEEE sqrtf
-__device__ float sqrt_rn(float x) {
-    const int xb = __float_as_int(x);
-    const int e = (xb >> 23) & 0xFF;
-    const int m = (xb & 0x7FFFFF) | 0x800000;
-    const int d = e - 127;
-    const int odd = d & 1;
-    const int mm = odd ? m << 1 : m;      // < 2^25
-    const int k = (d - odd) >> 1;         // floor((e - 127) / 2)
-    int root = 0, rem = 0;
-#pragma unroll
-    for (int p = 0; p < 25; ++p) {
-        const int sft = 23 - 2 * p;
-        const int pair = sft >= 0 ? (mm >> sft) & 3
-            : (sft == -1 ? (mm & 1) << 1 : 0);
-        rem = (rem << 2) | pair;
-        const int trial = (root << 2) | 1;
-        const int ge = rem >= trial ? 1 : 0;
-        if (ge) rem -= trial;
-        root = (root << 1) | ge;
-    }
-    const uint32_t out = round_pack(127 + k, root >> 1, root & 1, rem != 0);
-    const bool ok = e > 0 && e < 255 && xb >= 0 && out != 0xFFFFFFFFu;
-    return ok ? __uint_as_float(out) : sqrtf(x);
 }
 
 // the pinned libm (detmath.py): Cody-Waite reduction by pi/2 split in
@@ -450,11 +468,6 @@ __device__ __forceinline__ float m_rsq(const World& w, float x) {
 template <bool P>
 __device__ __forceinline__ float m_rcp(const World& w, float x) {
     return P ? rcp_emu(w, x) : 1.0f / x;
-}
-
-template <bool P>
-__device__ __forceinline__ float m_div(float a, float b) {
-    return P ? div_rn(a, b) : a / b;
 }
 
 template <bool P>
@@ -603,8 +616,10 @@ __device__ void sphere_pass(const World& w, Seg& s) {
         const float dot = (relx * s.rx + relz * s.rz) + rely * s.ry;
         const float calcrad2 = dist2 - dot * dot;
         if (!(dot > 0.0f && calcrad2 < rad2)) continue;
-        const float sph_dist = sqrt_rn(dist2) - sqrt_rn(fmax_nan(
-            1.0f - div_rn(calcrad2, rad2 > 0.0f ? rad2 : 1.0f), 0.0f));
+        // IEEE round-to-nearest-even root and quotient: the bits of
+        // core/ieee.py's integer sqrt_rn and div_rn
+        const float sph_dist = __fsqrt_rn(dist2) - __fsqrt_rn(fmax_nan(
+            1.0f - __fdiv_rn(calcrad2, rad2 > 0.0f ? rad2 : 1.0f), 0.0f));
         const float cand = sph_dist + s.cdist;
         if (s.aux_dist == -1.0f || cand < s.aux_dist) {
             s.aux_dist = cand;
@@ -678,21 +693,245 @@ __device__ void init_segment(const World& w, Seg& s, float fx, float fy,
     s.tmeta = 0;
 }
 
-// One DDA step of an active lane (tracer_core.segment_body).  Fast mode
-// refreshes its hoisted candidates after line changes (has_sph: hoisted
-// candidates exist); parity mode scans the cell's sphere buckets.  V: the
-// measurement instance (VAR_*); T: as fetch.
-template <bool P, int V, bool T>
+// A portal cell's jump (tracer_core.fetch_portal): the target page, the
+// portal's kind (pkind), and the ray's state one step past the far
+// portal, turned by its quarter turns (ldir, g*, c*, p*, v*, w*, i*)
+struct Jump {
+    int dpage, pkind, ldir, gx, gz, cx, cz;
+    float px, pz, vx, vz, wx, wz, ix, iz;
+};
+
+template <bool T>
+__device__ __forceinline__ Jump portal_jump(const World& w, const Seg& s) {
+    Jump j;
+    const int pw = fetch_word<T>(w, s.cx, s.cz, s.page);
+    // a one-page world's bits 26-29 count spheres, not a page
+    j.dpage = w.n_pages > 1 ? (pw >> 26) & 0xF : s.page;
+    j.pkind = (pw >> 4) & 3;
+    const int prot = (pw >> 6) & 3;
+    const int pdcx = ((pw >> 12) & 0x7F) - 64;
+    const int pdcz = ((pw >> 19) & 0x7F) - 64;
+    const int cxp = s.cx + pdcx;
+    const int czp = s.cz + pdcz;
+    const float px_t = s.px + (float)pdcx;
+    const float pz_t = s.pz + (float)pdcz;
+    j.ldir = (s.ldir - prot) & 3;
+    const float cxh = (float)cxp + 0.5f;
+    const float czh = (float)czp + 0.5f;
+    const bool r1 = prot == 1, r2 = prot == 2, r3 = prot == 3;
+    const float px_r = r1 ? cxh + (pz_t - czh)
+        : r2 ? cxh * 2.0f - px_t : r3 ? cxh - (pz_t - czh) : px_t;
+    const float pz_r = r1 ? czh - (px_t - cxh)
+        : r2 ? czh * 2.0f - pz_t : r3 ? czh + (px_t - cxh) : pz_t;
+    j.vx = r1 ? s.rz : r2 ? -s.rx : r3 ? -s.rz : s.rx;
+    j.vz = r1 ? -s.rx : r2 ? -s.rz : r3 ? s.rx : s.rz;
+    j.gx = r1 ? s.gz : r2 ? -s.gx : r3 ? -s.gz : s.gx;
+    j.gz = r1 ? -s.gx : r2 ? -s.gz : r3 ? s.gx : s.gz;
+    const bool swap = r1 || r3;
+    j.wx = swap ? s.wz : s.wx;
+    j.wz = swap ? s.wx : s.wz;
+    j.ix = swap ? s.iz : s.ix;
+    j.iz = swap ? s.ix : s.iz;
+    const int step_dx = j.ldir == FZP ? 0 : j.ldir == FXN ? -1
+        : j.ldir == FZN ? 0 : 1;
+    const int step_dz = j.ldir == FZP ? 1 : j.ldir == FZN ? -1 : 0;
+    j.cx = cxp + step_dx;
+    j.cz = czp + step_dz;
+    j.px = px_r + (float)step_dx;
+    j.pz = pz_r + (float)step_dz;
+    return j;
+}
+
+// A ramp cell's tilt of the ray's Y slope and its Y wall distance
+// (tracer_core.py:922-925); tilt is exactly 0 on other cells.  P: the
+// division is the IEEE round-to-nearest-even one, the bits of
+// core/ieee.py's div_rn
+template <bool P>
+__device__ __forceinline__ void ramp_tilt(const Seg& s, int cls, float& tilt,
+                                          float& wy_ramp) {
+    const float coef_x = cls == RAMP_GT ? -0.5f
+        : cls == RAMP_LT ? 0.5f : 0.0f;
+    const float coef_z = cls == RAMP_CM ? -0.5f
+        : cls == RAMP_CR ? 0.5f : 0.0f;
+    const bool rampx = cls == RAMP_GT || cls == RAMP_LT;
+    tilt = rampx ? coef_x * s.rx : coef_z * s.rz;
+    const float ry2 = s.ry + tilt;
+    const float ay2 = ry2 < 0.0f ? -ry2 : ry2;
+    wy_ramp = (ry2 >= 0.0f ? 1.0f - s.py : s.py)
+        * (P ? __fdiv_rn(1.0f, ay2) : 1.0f / ay2);
+}
+
+// One DDA step of an active lane in parity mode (tracer_core.
+// segment_body with the cell's sphere buckets scanned): segment_body's
+// masks, which pick one outcome a lane, resolved here by branches on
+// that outcome, each computing its fields by the same float operations
+// on the same operands, so the bits are segment_body's.  In order: the
+// sphere exit before a ramp step, on a floor or 2-high cell the sphere
+// exit and the Y hit, a ramp's Y hit, then on any marchable cell the X/Z
+// step (or the 2-high wall it meets), else a portal cell's jump or end,
+// a wall, or nothing; a lane that stays active meets the end-of-step
+// sphere check.  T: as fetch.
+template <bool T>
+__device__ void parity_step(const World& w, Seg& s) {
+    if (w.k_bucket > 0) sphere_pass(w, s);
+    const int cls = s.ent & 0xF;
+    const bool is_ramp = bit(RAMPS, cls);
+    const bool has_aux = s.aux_dist != -1.0f;
+    const float fire = s.aux_dist;
+    const bool sgt = s.cdist > fire;
+    float tilt = 0.0f, wy_ramp = 0.0f;
+    if (is_ramp) ramp_tilt<true>(s, cls, tilt, wy_ramp);
+    const float ray_y2 = s.ry + tilt;
+    if (is_ramp && has_aux && sgt) {         // the sphere exits first
+        s.tmeta = T_SPHERE;
+        s.ry = ray_y2;
+        s.cdist = s.aux_dist;
+        s.active = false;
+        return;
+    }
+    const bool is_tall = bit(TALLS, cls);
+    const bool is_fogc = bit(FOGC, cls);
+    if (bit(FLOORISH, cls) || is_tall || is_ramp) {
+        const float wx = s.wx, wz = s.wz;
+        const float wy_tall = s.gy > 0 ? s.wy + s.iy : s.wy;
+        const float wy = is_tall ? wy_tall : (is_ramp ? wy_ramp : s.wy);
+        const bool ymin = wy < wx && wy < wz;
+        const bool xstep = !ymin && wx < wz;
+        const float t = ymin ? wy : (xstep ? wx : wz);
+        const int gsel = is_ramp ? s.gy : s.gx;
+        const int ldir2 = ymin ? (s.gy < 0 ? FYN : FYP)
+            : xstep ? (gsel < 0 ? FXN : FXP) : (s.gz < 0 ? FZN : FZP);
+        const float cdist2 = s.cdist + t;
+        const float p2x = s.px + s.rx * t;
+        const float p2y = s.py + ray_y2 * t;
+        const float p2z = s.pz + s.rz * t;
+        if (!is_ramp && has_aux && cdist2 > fire) {   // sphere exit
+            const float extra = (is_fogc && s.aux_dist > s.cdist)
+                ? s.aux_dist - s.cdist : 0.0f;
+            s.tmeta = T_SPHERE;
+            s.cdist = s.aux_dist;
+            s.fog = s.fog + extra;
+            s.active = false;
+            return;
+        }
+        const float fog2 = is_fogc ? s.fog + (cdist2 - s.cdist) : s.fog;
+        if (ymin) {                          // floor, ceiling or ramp hit
+            s.tmeta = T_WALL | ((is_ramp ? (ray_y2 >= 0.0f ? C_CEIL : C_FLOOR)
+                                         : (s.gy > 0 ? C_CEIL : C_FLOOR))
+                                << 2);
+            s.px = p2x;
+            s.py = p2y;
+            s.pz = p2z;
+            if (is_ramp) s.ry = ray_y2;
+            s.cdist = cdist2;
+            s.fog = fog2;
+            s.ldir = is_ramp ? (ray_y2 < 0.0f ? FYN : FYP) : ldir2;
+            s.active = false;
+            return;
+        }
+        // the X/Z step and the one fetch
+        const float sub = xstep ? wx : wz;
+        const float wnx = xstep ? s.ix : wx - sub;
+        float wny = wy - sub;
+        const float wnz = xstep ? wz - sub : s.iz;
+        if (is_tall && s.gy > 0) wny = wny - s.iy;
+        const int cx2 = s.cx + (xstep ? s.gx : 0);
+        const int cz2 = s.cz + (xstep ? 0 : s.gz);
+        const float ray_y3 = is_ramp ? ray_y2 - tilt : ray_y2;
+        if (is_ramp) wny = (ray_y3 >= 0.0f ? 1.0f - p2y : p2y) * s.iy;
+        const int f_next = fetch<T>(w, cx2, cz2, s.page);
+        // transitions
+        const int ncls = f_next & 0xF;
+        float pos3y = p2y;
+        if (cls == LOWER && bit(TALLS, ncls)) {
+            pos3y = pos3y + 1.0f;
+            wny = s.gy < 0 ? wny + s.iy : wny - s.iy;
+        }
+        if (is_tall && ncls == LOWER) {
+            pos3y = pos3y - 1.0f;
+            wny = s.gy > 0 ? wny + s.iy : wny - s.iy;
+        }
+        // the 2-high wall check
+        const int xc = (f_next >> 4) & 3;
+        const bool chk = is_tall && (pos3y < 0.0f || pos3y > 1.0f);
+        if (chk && xc == 2) {
+            pos3y = pos3y + 1.0f;
+            wny = s.gy > 0 ? wny - s.iy : wny + s.iy;
+        }
+        s.px = p2x;
+        s.py = pos3y;
+        s.pz = p2z;
+        s.cdist = cdist2;
+        s.fog = fog2;
+        if (chk && xc != 1) {                // a 2-high wall
+            s.tmeta = T_WALL | (C_WALL << 2);
+            s.ldir = ldir2;
+            s.active = false;
+            return;
+        }
+        s.ent = f_next;
+        s.ry = ray_y3;
+        s.wx = wnx;
+        s.wy = wny;
+        s.wz = wnz;
+        s.cx = cx2;
+        s.cz = cz2;
+        s.ldir = is_ramp ? (xstep ? (s.rx < 0.0f ? FXN : FXP)
+                                  : (s.rz < 0.0f ? FZN : FZP))
+                         : ldir2;
+    } else if (cls == PORTAL || cls == WALL) {
+        const Jump j = cls == PORTAL ? portal_jump<T>(w, s) : Jump{};
+        if (cls == PORTAL && j.pkind == 1) {    // through the portal
+            s.ent = fetch<T>(w, j.cx, j.cz, j.dpage);
+            s.page = j.dpage;
+            s.px = j.px;
+            s.pz = j.pz;
+            s.rx = j.vx;
+            s.rz = j.vz;
+            s.wx = j.wx;
+            s.wz = j.wz;
+            s.ix = j.ix;
+            s.iz = j.iz;
+            s.gx = j.gx;
+            s.gz = j.gz;
+            s.cx = j.cx;
+            s.cz = j.cz;
+            s.ldir = j.ldir;
+        } else if (cls == WALL || j.pkind >= 2) {  // a wall, a bad portal
+            if (has_aux && sgt) {
+                s.tmeta = T_SPHERE;
+                s.cdist = s.aux_dist;
+            } else {
+                const int colid = cls == PORTAL
+                    ? (j.pkind == 3 ? C_MAGENTA : C_WALL)
+                    : (s.ldir == FYP ? C_CEIL : C_WALL);
+                s.tmeta = T_WALL | (colid << 2);
+            }
+            s.active = false;
+            return;
+        }
+    }
+    // ---- end-of-iteration sphere check ----
+    if (has_aux && s.cdist > fire) {
+        s.tmeta = T_SPHERE;
+        s.cdist = s.aux_dist;
+        s.active = false;
+    }
+}
+
+// One DDA step of an active lane in fast mode (tracer_core.segment_body):
+// it refreshes its hoisted candidates after line changes (has_sph:
+// hoisted candidates exist).  V: the measurement instance (VAR_*); T: as
+// fetch.
+template <int V, bool T>
 __device__ void segment_body(const World& w, Seg& s) {
-    const bool has_sph = !P && w.n_spheres > 0;
+    const bool has_sph = w.n_spheres > 0;
     const int cls = s.ent & 0xF;
     // the pads' data-opaque select: true unless cdist is NaN
     const bool opq = s.cdist > -1e30f;
 
-    // ---- rare events: sphere refresh or scan, portal targets, ramp ----
-    if (P) {
-        if (w.k_bucket > 0) sphere_pass(w, s);
-    } else if constexpr (V == VAR_FIRE1) {
+    // ---- rare events: sphere refresh, portal targets, ramp ----
+    if constexpr (V == VAR_FIRE1) {
         // the refresh on every step, on a copy the lane keeps only when
         // its own bit asks for it (tracer_core.py:717)
         if (has_sph) {
@@ -708,63 +947,16 @@ __device__ void segment_body(const World& w, Seg& s) {
     }
     const bool is_portal = cls == PORTAL;
     const bool is_ramp = bit(RAMPS, cls);
-    int pkind = 0, ldir_p = 0, gx_r = 0, gz_r = 0, cx_f = 0, cz_f = 0;
-    int dpage = s.page;
-    float px_f = 0.0f, pz_f = 0.0f, vx_r = 0.0f, vz_r = 0.0f,
-          wx_r = 0.0f, wz_r = 0.0f, ix_r = 0.0f, iz_r = 0.0f;
+    Jump j = {};
+    j.dpage = s.page;
     bool nr = false;
     // fire1: the portal targets on every step; only pgo lanes read them
     if (V == VAR_FIRE1 || is_portal) {
-        const int pw = fetch_word<T>(w, s.cx, s.cz, s.page);
-        // a one-page world's bits 26-29 count spheres, not a page
-        if (w.n_pages > 1) dpage = (pw >> 26) & 0xF;
-        pkind = (pw >> 4) & 3;
-        const int prot = (pw >> 6) & 3;
-        const int pdcx = ((pw >> 12) & 0x7F) - 64;
-        const int pdcz = ((pw >> 19) & 0x7F) - 64;
-        const int cxp = s.cx + pdcx;
-        const int czp = s.cz + pdcz;
-        const float px_t = s.px + (float)pdcx;
-        const float pz_t = s.pz + (float)pdcz;
-        ldir_p = (s.ldir - prot) & 3;
-        const float cxh = (float)cxp + 0.5f;
-        const float czh = (float)czp + 0.5f;
-        const bool r1 = prot == 1, r2 = prot == 2, r3 = prot == 3;
-        const float px_r = r1 ? cxh + (pz_t - czh)
-            : r2 ? cxh * 2.0f - px_t : r3 ? cxh - (pz_t - czh) : px_t;
-        const float pz_r = r1 ? czh - (px_t - cxh)
-            : r2 ? czh * 2.0f - pz_t : r3 ? czh + (px_t - cxh) : pz_t;
-        vx_r = r1 ? s.rz : r2 ? -s.rx : r3 ? -s.rz : s.rx;
-        vz_r = r1 ? -s.rx : r2 ? -s.rz : r3 ? s.rx : s.rz;
-        gx_r = r1 ? s.gz : r2 ? -s.gx : r3 ? -s.gz : s.gx;
-        gz_r = r1 ? -s.gx : r2 ? -s.gz : r3 ? s.gx : s.gz;
-        const bool swap = r1 || r3;
-        wx_r = swap ? s.wz : s.wx;
-        wz_r = swap ? s.wx : s.wz;
-        ix_r = swap ? s.iz : s.ix;
-        iz_r = swap ? s.ix : s.iz;
-        const int step_dx = ldir_p == FZP ? 0 : ldir_p == FXN ? -1
-            : ldir_p == FZN ? 0 : 1;
-        const int step_dz = ldir_p == FZP ? 1 : ldir_p == FZN ? -1 : 0;
-        cx_f = cxp + step_dx;
-        cz_f = czp + step_dz;
-        px_f = px_r + (float)step_dx;
-        pz_f = pz_r + (float)step_dz;
-        if (has_sph) nr = sphere_rel(w, px_f, pz_f, vx_r, vz_r, dpage);
+        j = portal_jump<T>(w, s);
+        if (has_sph) nr = sphere_rel(w, j.px, j.pz, j.vx, j.vz, j.dpage);
     }
-    // tilt is exactly 0 on non-ramp lanes (tracer_core.py:922-925)
     float tilt = 0.0f, wy_ramp = 0.0f;
-    if (is_ramp) {
-        const float coef_x = cls == RAMP_GT ? -0.5f
-            : cls == RAMP_LT ? 0.5f : 0.0f;
-        const float coef_z = cls == RAMP_CM ? -0.5f
-            : cls == RAMP_CR ? 0.5f : 0.0f;
-        const bool rampx = cls == RAMP_GT || cls == RAMP_LT;
-        tilt = rampx ? coef_x * s.rx : coef_z * s.rz;
-        const float ry2 = s.ry + tilt;
-        const float ay2 = ry2 < 0.0f ? -ry2 : ry2;
-        wy_ramp = (ry2 >= 0.0f ? 1.0f - s.py : s.py) * m_div<P>(1.0f, ay2);
-    }
+    if (is_ramp) ramp_tilt<false>(s, cls, tilt, wy_ramp);
 
     const bool is_floorish = bit(FLOORISH, cls);
     const bool is_tall = bit(TALLS, cls);
@@ -779,7 +971,7 @@ __device__ void segment_body(const World& w, Seg& s) {
     const float wx = s.wx, wy0 = s.wy, wz = s.wz;
     float wxe = wx, wze = wz;
     int kx = 0, kz = 0;
-    if (!P && w.skip) {
+    if (w.skip) {
         const int runx = (s.ent >> 7) & 0xF;
         const int runz = (s.ent >> 11) & 0xF;
         const int jx = __float2int_rz(floorf((wz - wx) * fabsf(s.rx)));
@@ -849,15 +1041,15 @@ __device__ void segment_body(const World& w, Seg& s) {
     if (rgs) wny = (ray_y3 >= 0.0f ? 1.0f - p2y : p2y) * s.iy;
 
     // ---- portal traversal + the one per-step fetch ----
-    const bool pgo = a && is_portal && pkind == 1;
+    const bool pgo = a && is_portal && j.pkind == 1;
     int f_next = s.ent;
     if (stepped || pgo) {
-        f_next = pgo ? fetch<T>(w, cx_f, cz_f, dpage)
+        f_next = pgo ? fetch<T>(w, j.cx, j.cz, j.dpage)
                      : fetch<T>(w, cx2, cz2, s.page);
         if constexpr (V == VAR_FETCH2X) {
             // a second fetch at a runtime-equal index (tracer_core.py:1082)
             const int dz = opq ? 0 : 1;
-            const int dup = pgo ? fetch<T>(w, cx_f, cz_f + dz, dpage)
+            const int dup = pgo ? fetch<T>(w, j.cx, j.cz + dz, j.dpage)
                                 : fetch<T>(w, cx2, cz2 + dz, s.page);
             f_next = opq ? f_next : dup;
         }
@@ -888,8 +1080,8 @@ __device__ void segment_body(const World& w, Seg& s) {
     a = a && !m_wall2;
 
     // ---- portal cells + plain wall ----
-    const bool p_bad = a && is_portal && pkind == 2;
-    const bool p_wrong = a && is_portal && pkind == 3;
+    const bool p_bad = a && is_portal && j.pkind == 2;
+    const bool p_wrong = a && is_portal && j.pkind == 3;
     const bool wall0 = a && is_wall;
     const bool sphfire = has_aux && sgt;
     a = a && !(p_bad || p_wrong || wall0);
@@ -914,22 +1106,22 @@ __device__ void segment_body(const World& w, Seg& s) {
             : (m_wallm && s.ldir == FYP) ? C_CEIL : C_WALL;
         s.tmeta = sphm ? T_SPHERE : (T_WALL | (colid << 2));
     }
-    const float npx = pgo2 ? px_f : (cn ? p2x : s.px);
+    const float npx = pgo2 ? j.px : (cn ? p2x : s.px);
     const float npy = cw ? pos3y : (my2 ? p2y : s.py);
-    const float npz = pgo2 ? pz_f : (cn ? p2z : s.pz);
+    const float npz = pgo2 ? j.pz : (cn ? p2z : s.pz);
     const float nry = cont2 ? ray_y3
         : ((m_presph || m_ryhit) ? ray_y2 : s.ry);
-    const float nrx = pgo2 ? vx_r : s.rx;
-    const float nrz = pgo2 ? vz_r : s.rz;
-    const float nwx = pgo2 ? wx_r : (cont2 ? wnx : wx);
+    const float nrx = pgo2 ? j.vx : s.rx;
+    const float nrz = pgo2 ? j.vz : s.rz;
+    const float nwx = pgo2 ? j.wx : (cont2 ? wnx : wx);
     const float nwy = cont2 ? wny : wy0;
-    const float nwz = pgo2 ? wz_r : (cont2 ? wnz : wz);
-    const float nix = pgo2 ? ix_r : s.ix;
-    const float niz = pgo2 ? iz_r : s.iz;
-    const int ngx = pgo2 ? gx_r : s.gx;
-    const int ngz = pgo2 ? gz_r : s.gz;
-    const int ncx = cont2 ? cx2 : (pgo2 ? cx_f : s.cx);
-    const int ncz = cont2 ? cz2 : (pgo2 ? cz_f : s.cz);
+    const float nwz = pgo2 ? j.wz : (cont2 ? wnz : wz);
+    const float nix = pgo2 ? j.ix : s.ix;
+    const float niz = pgo2 ? j.iz : s.iz;
+    const int ngx = pgo2 ? j.gx : s.gx;
+    const int ngz = pgo2 ? j.gz : s.gz;
+    const int ncx = cont2 ? cx2 : (pgo2 ? j.cx : s.cx);
+    const int ncz = cont2 ? cz2 : (pgo2 ? j.cz : s.cz);
     const float ncd = cn ? cdist2 : (sphm ? s.aux_dist : s.cdist);
     float nfog = (cont2 || m_yhit || m_wall2) ? fog2
         : (m_sph2 ? s.fog + extra : s.fog);
@@ -991,11 +1183,11 @@ __device__ void segment_body(const World& w, Seg& s) {
             s.tmeta = opq ? s.tmeta : (acc ? 1 : 2);
         }
     }
-    const int nld = cont2 ? ldir3 : pgo2 ? ldir_p
+    const int nld = cont2 ? ldir3 : pgo2 ? j.ldir
         : m_ryhit ? (ray_y2 < 0.0f ? FYN : FYP)
         : (m_yhit || m_wall2) ? ldir2 : s.ldir;
     if (cont2 || pgo2) s.ent = f_next;
-    if (pgo2) s.page = dpage;
+    if (pgo2) s.page = j.dpage;
     s.px = npx;
     s.py = npy;
     s.pz = npz;
@@ -1033,6 +1225,15 @@ __device__ void segment_body(const World& w, Seg& s) {
         s.cdist = s.aux_dist;
         s.active = false;
     }
+}
+
+// One DDA step of an active lane, in the instance's mode
+template <bool P, int V, bool T>
+__device__ __forceinline__ void dda_step(const World& w, Seg& s) {
+    if constexpr (P)
+        parity_step<T>(w, s);
+    else
+        segment_body<V, T>(w, s);
 }
 
 struct Shade {
@@ -1205,8 +1406,7 @@ struct Params {
     const float* sph;
     const float* bound;       // fast mode only
     const int32_t* buckets;   // parity mode only
-    const uint32_t* rsq_tab;  // parity mode only
-    const uint32_t* rcp_tab;  // parity mode only
+    const uint16_t* sse;      // parity mode only: compact SSE tables
     int n, n_spheres, k_bucket, maxsteps, reflect, skip;
     int n_pages, sphere_page, page0;
     int samples;              // bounce chains a ray
@@ -1215,7 +1415,8 @@ struct Params {
     float inv;                // f32(1 / samples), rounded on the host
     int32_t* out_fb;
     float* out_dist;
-    int32_t* out_tstep;       // VAR_PROFILE: [reflect + 1, n]
+    int32_t* out_tstep;       // VAR_PROFILE: [reflect + 1, n];
+                              // VAR_PHASES: the counters
     // the warps' work (set_tiles): n_tiles tiles of WARP rays, 8x4-pixel
     // tiles of a [rows, width] image (tiles_x tiles a tile row), or runs
     // of WARP consecutive rays when tiles_x is 0
@@ -1229,25 +1430,25 @@ struct Params {
 constexpr uint32_t WEYL = 0x9E3779B9u;
 
 // Offsets in 4-byte words into the dynamic shared memory, in order: (T)
-// the one-page cell tables ent and word, the sphere records, (P) the SSE
-// tables, then (unless F) the unwind records, REC floats a wave for each
-// of the block's threads, [wave][record][thread].
+// the one-page cell tables ent and word, the sphere records, (P) the
+// compact SSE tables, then (unless F) the unwind records, REC floats a
+// wave for each of the block's threads, [wave][record][thread].
 template <bool T>
 __host__ __device__ constexpr int off_sph() {
     return T ? 2 * CELLS : 0;
 }
 template <bool T>
-__host__ __device__ constexpr int off_rsq() {
+__host__ __device__ constexpr int off_sse() {
     return off_sph<T>() + NSPH_MAX * SPH_COLS;
 }
 template <bool P, bool T>
 __host__ __device__ constexpr int off_rec() {
-    return off_rsq<T>() + (P ? RSQ_N + RCP_N : 0);
+    return off_sse<T>() + (P ? SSE_BYTES / 4 : 0);
 }
-template <bool P, bool F, bool T>
+template <bool P, bool S, bool F, bool T>
 __host__ __device__ constexpr size_t smem_bytes(int n_waves) {
-    return sizeof(uint32_t)
-        * (off_rec<P, T>() + (F ? 0 : n_waves * REC * BLOCK));
+    return sizeof(uint32_t) * (off_rec<P, T>()
+        + (F ? 0 : n_waves * REC * Block<P, S, F>::threads));
 }
 
 // ---- the tables' bulk copy: one TMA transfer a table, completing on an
@@ -1312,10 +1513,14 @@ __device__ __forceinline__ int march(const World& w, const Params& a,
                                      Seg& s, float fx, float fy, float fz,
                                      float rx, float ry, float rz,
                                      int page) {
+    const long long t_march = phase_clock<V>();
     start<P, T, LAZY>(w, a, s, fx, fy, fz, rx, ry, rz, page);
     int tstep = 0;
+    unsigned steps_cycles = 0;     // VAR_PHASES
     for (int step = 0; step < a.maxsteps && s.active; ++step) {
-        segment_body<P, V, T>(w, s);
+        const long long t0 = phase_clock<V>();
+        dda_step<P, V, T>(w, s);
+        phase_lead<V>(steps_cycles, t0);
         if constexpr (V == VAR_PROFILE) {
             if (!s.active) tstep = step + 1;
         }
@@ -1324,20 +1529,24 @@ __device__ __forceinline__ int march(const World& w, const Params& a,
         s.tmeta = T_SKY;
         if constexpr (V == VAR_PROFILE) tstep = a.maxsteps;
     }
+    phase_sum<V>(w, PH_STEPS, steps_cycles);
+    phase_add<V>(w, PH_MARCH, t_march);
     return tstep;
 }
 
 // Wave k's shaded colour, reflectance and fog to the thread's column of
-// the unwind records (rec[(k * REC + c) * BLOCK]); icol gets the colour
+// the unwind records (rec[(k * REC + c) * B], B the block's threads);
+// icol gets the colour
+template <int B>
 __device__ __forceinline__ void record(float* rec, int k, const Shade& o,
                                        float icol[4]) {
-    float* r = rec + k * REC * BLOCK;
+    float* r = rec + k * REC * B;
     r[0] = o.b;
-    r[BLOCK] = o.g;
-    r[2 * BLOCK] = o.r;
-    r[3 * BLOCK] = o.a;
-    r[4 * BLOCK] = o.refl;
-    r[5 * BLOCK] = o.fog;
+    r[B] = o.g;
+    r[2 * B] = o.r;
+    r[3 * B] = o.a;
+    r[4 * B] = o.refl;
+    r[5 * B] = o.fog;
     icol[0] = o.b;
     icol[1] = o.g;
     icol[2] = o.r;
@@ -1345,18 +1554,19 @@ __device__ __forceinline__ void record(float* rec, int k, const Shade& o,
 }
 
 // Backward unwind blend (tracer_core.py:1795-1801) of a chain whose last
-// wave, `last`, has colour icol: every wave below it bounced
-template <bool P>
+// wave, `last`, has colour icol: every wave below it bounced; B: as
+// record's
+template <bool P, int B>
 __device__ __forceinline__ void unwind(const float* rec, int last,
                                        const float icol[4], float col[4]) {
     for (int c = 0; c < 4; ++c) col[c] = icol[c];
     for (int k = last - 1; k >= 0; --k) {
-        const float* r = rec + k * REC * BLOCK;
-        const float refl = r[4 * BLOCK], fog = r[5 * BLOCK];
+        const float* r = rec + k * REC * B;
+        const float refl = r[4 * B], fog = r[5 * B];
         const float fogf = m_exp<P>(-0.6f * fog);
         for (int c = 0; c < 4; ++c) {
             const float blended = col[c] * refl
-                + r[c * BLOCK] * (1.0f - refl);
+                + r[c * B] * (1.0f - refl);
             col[c] = fog != 0.0f ? blended * fogf + (1.0f - fogf)
                                  : blended;
         }
@@ -1368,10 +1578,10 @@ __device__ __forceinline__ void unwind(const float* rec, int last,
 // waves 1..reflect (each on the page where the wave before it ended)
 // until a wave does not bounce, then unwind the blend backward into col.
 // Wave k's shaded colour, reflectance and fog go to rec[(k * REC + c) *
-// BLOCK], the thread's column of the block's unwind records in shared
-// memory, where no run-time index sends them to local memory.
-// VAR_PROFILE: ts[k] gets wave k's terminal step count (k >= 1).
-template <bool P, int V, bool T>
+// B], the thread's column of the block's unwind records in shared memory
+// (B: the block's threads), where no run-time index sends them to local
+// memory.  VAR_PROFILE: ts[k] gets wave k's terminal step count (k >= 1).
+template <bool P, int V, bool T, int B>
 __device__ __forceinline__ void chain(const World& w, const Params& a,
                                       const Seg& s0, uint32_t seed,
                                       float col[4], float* rec,
@@ -1387,13 +1597,17 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
                                          s.page);
             if constexpr (V == VAR_PROFILE) ts[k] = t;
         }
+        const long long t0 = phase_clock<V>();
         const Shade o = shade<P, V>(w, s, icol, seed, a.sec, k < a.reflect,
                                     a.inv_mod, fx, fy, fz, rx, ry, rz);
-        record(rec, k, o, icol);
+        record<B>(rec, k, o, icol);
+        phase_add<V>(w, PH_SHADE, t0);
         last = k;
         if (!o.bounce) break;
     }
-    unwind<P>(rec, last, icol, col);
+    const long long t0 = phase_clock<V>();
+    unwind<P, B>(rec, last, icol, col);
+    phase_add<V>(w, PH_UNWIND, t0);
 }
 
 // Sample chain k of trace_ray's samples loop from the primary segment's
@@ -1402,15 +1616,15 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
 // reflectance and fog) and in registers (bounce, whether it bounces; its
 // bounce origin px, py, pz, mirrored ray mx, my, mz and end page): the
 // jitter with this chain's seed, then waves 1..reflect and the unwind as
-// chain() runs them.
-template <bool P, bool T>
+// chain() runs them.  B: as chain's.
+template <bool P, bool T, int B>
 __device__ __forceinline__ void chain_from(const World& w, const Params& a,
                                            bool bounce, float px, float py,
                                            float pz, float mx, float my,
                                            float mz, int page,
                                            uint32_t seed, float col[4],
                                            float* rec) {
-    float icol[4] = {rec[0], rec[BLOCK], rec[2 * BLOCK], rec[3 * BLOCK]};
+    float icol[4] = {rec[0], rec[B], rec[2 * B], rec[3 * B]};
     int last = 0;
     if (bounce) {
         float fx = px, fy = py, fz = pz, rx, ry, rz;
@@ -1421,13 +1635,13 @@ __device__ __forceinline__ void chain_from(const World& w, const Params& a,
                                         page);
             const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
                                      a.inv_mod, fx, fy, fz, rx, ry, rz);
-            record(rec, k, o, icol);
+            record<B>(rec, k, o, icol);
             last = k;
             page = s.page;
             if (!o.bounce) break;
         }
     }
-    unwind<P>(rec, last, icol, col);
+    unwind<P, B>(rec, last, icol, col);
 }
 
 // The fused wave loop (tracer_core.run_fused, _process_deaths), fast mode,
@@ -1503,7 +1717,7 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
     const int n_it = (cap + chunk - 1) / chunk * chunk;
     while (true) {
         for (int segsteps = 0; s.active && f.it < n_it;) {
-            segment_body<false, VAR_NONE, T>(w, s);
+            segment_body<VAR_NONE, T>(w, s);
             ++f.it;
             // the per-segment step budget -> sky (trace.h:247,678)
             if (s.active && ++segsteps >= a.maxsteps) {
@@ -1530,6 +1744,7 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
 template <bool P, bool S, bool F, int V, bool T>
 __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
                                           int i, float* rec) {
+    constexpr int B = Block<P, S, F>::threads;
     const uint32_t seed = (uint32_t)a.seeds[i];
     float col[4], dist0;
     if constexpr (F) {
@@ -1548,10 +1763,10 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
         float px, py, pz, mx, my, mz, icol[4];
         const Shade o0 = shade_hit<P>(w, s, one, a.sec, 0 < a.reflect, px,
                                       py, pz, mx, my, mz);
-        record(rec, 0, o0, icol);
+        record<B>(rec, 0, o0, icol);
         for (int k = 0; k < a.samples; ++k) {
             float c[4];
-            chain_from<P, T>(w, a, o0.bounce, px, py, pz, mx, my, mz,
+            chain_from<P, T, B>(w, a, o0.bounce, px, py, pz, mx, my, mz,
                              s.page, seed + (uint32_t)k * WEYL, c, rec);
             for (int j = 0; j < 4; ++j)
                 col[j] = k == 0 ? c[j] : col[j] + c[j];
@@ -1563,7 +1778,7 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
         ts[0] = march<P, V, T>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
                                a.dy[i], a.dz[i], a.page0);
         dist0 = s.cdist;
-        chain<P, V, T>(w, a, s, seed, col, rec, ts);
+        chain<P, V, T, B>(w, a, s, seed, col, rec, ts);
         if constexpr (V == VAR_PROFILE) {
             for (int k = 0; k <= a.reflect; ++k)
                 a.out_tstep[(size_t)k * a.n + i] = ts[k];
@@ -1592,12 +1807,11 @@ __device__ __forceinline__ int tile_ray(const Params& a, int tile,
 }
 
 // Persistent warps, which take tiles off a queue, for the instances whose
-// blocks load the SSE tables or whose rays run several chains or the
-// fused loop; one tile a warp, block b holding tiles b * warps ..
-// + warps - 1, for the one-chain fast instances.
+// rays run several chains or the fused loop; one tile a warp, block b
+// holding tiles b * warps .. + warps - 1, for the one-chain instances.
 template <bool P, bool S, bool F>
 __host__ __device__ constexpr bool persistent() {
-    return P || S || F;
+    return S || F;
 }
 
 // lane 0 takes the next tile off the queue; every lane gets it
@@ -1607,35 +1821,38 @@ __device__ __forceinline__ int take_tile(int* queue, int lane) {
     return __shfl_sync(0xffffffffu, tile, 0);
 }
 
-// The block's prologue loads what every ray reads: (T) the one-page cell
-// tables by two bulk copies, the sphere records and (P) the SSE tables.
+// The block's prologue loads what every ray reads: by bulk copies, (T)
+// the one-page cell tables and (P) the compact SSE tables; the sphere
+// records by the block's threads.  VAR_PHASES (one tile a warp) adds its
+// counters to out_tstep, read as u64 [PHASE_ROWS, N_PHASES].
 template <bool P, bool S, bool F, int V, bool T>
-__global__ void __launch_bounds__(Block<F>::threads, Block<F>::min_blocks)
+__global__ void __launch_bounds__(Block<P, S, F>::threads,
+                                  Block<P, S, F>::min_blocks)
 trace_kernel(const Params a) {
-    constexpr int threads = Block<F>::threads;
+    const long long t_kernel = phase_clock<V>();
+    constexpr int threads = Block<P, S, F>::threads;
+    constexpr uint32_t bulk = (T ? 2 * CELLS * sizeof(int32_t) : 0)
+        + (P ? SSE_BYTES : 0);
     __shared__ uint64_t tables_ready;
     float* sph = reinterpret_cast<float*>(smem + off_sph<T>());
-    uint32_t* rsq = smem + off_rsq<T>();
-    uint32_t* rcp = rsq + RSQ_N;
-    if constexpr (T) {
+    uint32_t* sse = smem + off_sse<T>();
+    if constexpr (bulk > 0) {
         if (threadIdx.x == 0) {
             mbar_init(&tables_ready);
-            mbar_expect(&tables_ready, 2 * CELLS * sizeof(int32_t));
-            bulk_load(smem, a.ent, CELLS * sizeof(int32_t), &tables_ready);
-            bulk_load(smem + CELLS, a.word, CELLS * sizeof(int32_t),
-                      &tables_ready);
+            mbar_expect(&tables_ready, bulk);
+            if constexpr (T) {
+                bulk_load(smem, a.ent, CELLS * sizeof(int32_t),
+                          &tables_ready);
+                bulk_load(smem + CELLS, a.word, CELLS * sizeof(int32_t),
+                          &tables_ready);
+            }
+            if constexpr (P) bulk_load(sse, a.sse, SSE_BYTES, &tables_ready);
         }
     }
     for (int k = threadIdx.x; k < a.n_spheres * SPH_COLS; k += threads)
         sph[k] = a.sph[k];
-    if (P) {
-        for (int k = threadIdx.x; k < RSQ_N; k += threads)
-            rsq[k] = __ldg(a.rsq_tab + k);
-        for (int k = threadIdx.x; k < RCP_N; k += threads)
-            rcp[k] = __ldg(a.rcp_tab + k);
-    }
     __syncthreads();     // also publishes the initialised barrier
-    if constexpr (T) mbar_wait(&tables_ready, 0);
+    if constexpr (bulk > 0) mbar_wait(&tables_ready, 0);
 
     World w;
     w.ent = a.ent;
@@ -1649,8 +1866,7 @@ trace_kernel(const Params a) {
         w.skip = false;
         w.buckets = a.buckets;
         w.k_bucket = a.k_bucket;
-        w.rsq_tab = rsq;
-        w.rcp_tab = rcp;
+        w.sse = reinterpret_cast<const uint16_t*>(sse);
     } else {
         w.bx = a.bound[0];
         w.bz = a.bound[2];
@@ -1658,7 +1874,11 @@ trace_kernel(const Params a) {
         w.skip = a.skip != 0;
         w.buckets = nullptr;
         w.k_bucket = 0;
-        w.rsq_tab = w.rcp_tab = nullptr;
+        w.sse = nullptr;
+    }
+    if constexpr (V == VAR_PHASES) {
+        w.phases = reinterpret_cast<unsigned long long*>(a.out_tstep);
+        phase_add<V>(w, PH_PROLOGUE, t_kernel);
     }
     float* rec = reinterpret_cast<float*>(smem + off_rec<P, T>())
         + threadIdx.x;
@@ -1681,8 +1901,12 @@ trace_kernel(const Params a) {
         }
     } else {
         const int i = tile_ray(
-            a, blockIdx.x * Block<F>::warps + threadIdx.x / WARP, lane);
+            a, blockIdx.x * Block<P, S, F>::warps + threadIdx.x / WARP,
+            lane);
+        const long long t0 = phase_clock<V>();
         if (i >= 0) trace_ray<P, S, F, V, T>(w, a, i, rec);
+        phase_add<V>(w, PH_TILE, t0);
+        phase_add<V>(w, PH_KERNEL, t_kernel);
     }
 }
 
@@ -1714,9 +1938,10 @@ int launch_tiles(const Params& a, void* stream) {
     static int per_sm[MAX_DEVICES][MAX_WAVES + 1];
     static int sms[MAX_DEVICES];
     const auto kernel = trace_kernel<P, S, F, V, T>;
-    constexpr int threads = Block<F>::threads, warps = Block<F>::warps;
+    constexpr int threads = Block<P, S, F>::threads;
+    constexpr int warps = Block<P, S, F>::warps;
     const int n_waves = a.reflect + 1;
-    const int smem = (int)smem_bytes<P, F, T>(n_waves);
+    const int smem = (int)smem_bytes<P, S, F, T>(n_waves);
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
@@ -1749,18 +1974,21 @@ int launch_tiles(const Params& a, void* stream) {
     }
     if (persistent<P, S, F>() && a.queue == nullptr)
         return (int)cudaErrorInvalidValue;
+#ifdef __CUDACC__   // csrc/host compiles this file without a launch
     kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
+#endif
     return (int)cudaGetLastError();
 }
 
-// Fast mode on a one-page world takes the instance with its cell tables
-// in shared memory, whose pointers must then be 16-byte aligned (bulk
-// copy).  Parity mode keeps them in the read-only cache: beside its SSE
-// tables and the unwind records they would leave room for one block an
-// SM.
+// A one-page world takes the instance with its cell tables in shared
+// memory, in both modes; a paged world's stay in the read-only cache.
+// A table that a bulk copy loads (the one-page ent and word, parity's
+// compact SSE tables) must be 16-byte aligned.
 template <bool P, bool S, bool F = false, int V = VAR_NONE>
 int launch_instance(const Params& a, void* stream) {
-    if (P || a.n_pages > 1) return launch_tiles<P, S, F, V, false>(a, stream);
+    if (P && (uintptr_t)a.sse % 16 != 0)
+        return (int)cudaErrorMisalignedAddress;
+    if (a.n_pages > 1) return launch_tiles<P, S, F, V, false>(a, stream);
     if (((uintptr_t)a.ent | (uintptr_t)a.word) % 16 != 0)
         return (int)cudaErrorMisalignedAddress;
     return launch_tiles<P, S, F, V, true>(a, stream);
@@ -1773,14 +2001,14 @@ int launch_instance(const Params& a, void* stream) {
 // the launch there and do not launch (launch_tiles).
 struct Args {
     const void *ox, *oy, *oz, *dx, *dy, *dz, *seeds, *ent, *word, *sph,
-        *bound, *buckets, *rsq_tab, *rcp_tab;
+        *bound, *buckets, *sse;
     void *out_fb, *out_dist, *out_tstep, *queue, *query;
     int32_t n, n_spheres, k_bucket, maxsteps, reflect, skip, n_pages,
         sphere_page, page0, samples, fused, step_chunk, width, parity,
         variant, unused;
     float sec, slack, inv_mod, inv;
 };
-static_assert(sizeof(Args) == 19 * 8 + 16 * 4 + 4 * 4,
+static_assert(sizeof(Args) == 18 * 8 + 16 * 4 + 4 * 4,
               "Args must match ops/tracer.py's _ARGS");
 
 __host__ inline Params params_of(const Args& g) {
@@ -1797,8 +2025,7 @@ __host__ inline Params params_of(const Args& g) {
     a.sph = (const float*)g.sph;
     a.bound = (const float*)g.bound;
     a.buckets = (const int32_t*)g.buckets;
-    a.rsq_tab = (const uint32_t*)g.rsq_tab;
-    a.rcp_tab = (const uint32_t*)g.rcp_tab;
+    a.sse = (const uint16_t*)g.sse;
     a.n = g.n;
     a.n_spheres = g.n_spheres;
     a.k_bucket = g.k_bucket;

@@ -17,7 +17,8 @@ The measurement instances (`cfg.profile`, `cfg.water=False`, `cfg.probe`;
 fast mode, one sample, unfused, one page or paged) launch entry
 `pwnfps_trace_variant` of csrc/tracer_variants.cu, one instance of the
 same template each.  `trace_wave_profile` returns the profile instance's
-per-wave terminal step counts beside the frame.  Both entries take one
+per-wave terminal step counts beside the frame, `trace_wave_phases` the
+phases instance's warp-cycles by region (parity mode, one sample).  Both entries take one
 argument, the launch's fields packed into csrc/tracer_body.cuh's `Args`
 (`_ARGS`), through the port's launch route (`_launch.Entry`); a world's
 table checks and addresses are kept after its first launch.
@@ -26,9 +27,9 @@ Each warp of every instance traces a tile of 32 rays: 8x4 pixels of
 the row-major image `cfg.width` wide that the rays are taken to be
 (where the width divides n), else 32 consecutive rays.  `warp_tiles`
 is the kernel's map from a warp's tile to its rays; no output depends
-on it.  The parity, samples and fused
-instances run persistent warps that take tiles off a queue: a two-word
-scratch tensor a (device, stream) pair, which each launch leaves zero.
+on it.  The samples (either mode) and fused instances run persistent
+warps that take tiles off a queue: a two-word scratch tensor a (device,
+stream) pair, which each launch leaves zero.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 
 from .._launch import Entry, stream as current_stream
 from ..core import lcg
+from ..core.approx import COMPACT_RCP, COMPACT_RSQ
 from ..core.config import RenderConfig
 from .tracer_core import (PROBES, check_config, col_ftoint,
                           trace_wave_env, variant)
@@ -70,10 +72,16 @@ LAUNCHES_PARITY_PAGED = 0
 VARIANTS = {name: k for k, name in enumerate(("nowater", "profile")
                                              + PROBES, 1)}
 LAUNCHES_VARIANT = dict.fromkeys(VARIANTS, 0)
+# the phases instance (VAR_PHASES: parity mode, one sample): its regions
+# in the order of its counters (csrc/tracer_body.cuh PH_*), the rows of
+# counters it takes, and its launches
+PHASES = ("prologue", "tile", "march", "steps", "shade", "unwind", "kernel")
+VAR_PHASES, PHASE_ROWS = len(VARIANTS) + 1, 8192
+LAUNCHES_PHASES = 0
 # C entry points of csrc/tracer.cu and csrc/tracer_variants.cu, each
-# taking one packed argument: csrc/tracer_body.cuh's Args, 19 pointers,
+# taking one packed argument: csrc/tracer_body.cuh's Args, 18 pointers,
 # 16 int32 and 4 float32 (struct packing rounds each float to f32)
-_ARGS = struct.Struct("=19Q16i4f")
+_ARGS = struct.Struct("=18Q16i4f")
 _TRACE = Entry("tracer", "pwnfps_trace", [ctypes.c_char_p])
 _TRACE_VARIANT = Entry("tracer_variants", "pwnfps_trace_variant",
                        [ctypes.c_char_p])
@@ -125,7 +133,7 @@ def _pack(wt: TorchWorld, cfg: RenderConfig, n: int, rays, outs, queue,
         n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
         cfg.space_skip and wt.skip_ok, wt.n_pages, wt.sphere_page, page0,
         cfg.samples, fused, max(1, cfg.step_chunk), width, cfg.parity,
-        VARIANTS.get(var, 0), 0, sec, wt.slack, lcg.INV_MOD_F,
+        VAR_PHASES if var == "phases" else VARIANTS.get(var, 0), 0, sec, wt.slack, lcg.INV_MOD_F,
         1.0 / cfg.samples)
 
 
@@ -137,7 +145,7 @@ def launch_shape(cfg: RenderConfig, n: int, width: int | None,
     query set)."""
     out = torch.zeros(4, dtype=torch.int32)
     fused = cfg.fused and not cfg.parity
-    args = _ARGS.pack(*[0] * 18, out.data_ptr(), n, 0, 0, 0, cfg.reflect,
+    args = _ARGS.pack(*[0] * 17, out.data_ptr(), n, 0, 0, 0, cfg.reflect,
                       0, n_pages, 0, 0, cfg.samples, fused, 1, width or 0,
                       cfg.parity, 0, 0, 0.0, 0.0, 0.0, 0.0)
     index = torch.device(device).index or 0
@@ -162,24 +170,24 @@ def trace_wave_plain(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
 
 def _world_args(wt: TorchWorld) -> tuple[int, tuple]:
     """(device index, -1 on the CPU, and the addresses of ent, word, sph,
-    bound, buckets, rsqrt_tab and rcp_tab) of a world whose tables have
+    bound, buckets and sse, the SSE tables' compact form that the kernel
+    reads in place of rsqrt_tab and rcp_tab) of a world whose tables have
     world_to_torch's shapes and layout, or ValueError.  Checked once a
     world: a TorchWorld is frozen, and its tables are not replaced."""
     hit = _WORLDS.get(id(wt))
     if hit is not None and hit[0]() is wt:
         return hit[1], hit[2]
-    tables = (wt.ent, wt.word, wt.sph, wt.bound, wt.buckets, wt.rsqrt_tab,
-              wt.rcp_tab)
+    tables = (wt.ent, wt.word, wt.sph, wt.bound, wt.buckets, wt.sse)
     cells = wt.n_pages * 4096
     if (wt.ent.shape != (cells,) or wt.word.shape != (cells,)
             or not 0 <= wt.sphere_page < wt.n_pages
             or wt.sph.shape != (wt.n_spheres, SPH_COLS)
             or wt.bound.shape != (4,)
             or wt.buckets.shape != (cells * wt.k_bucket,)
-            or wt.rsqrt_tab.shape != (8192,) or wt.rcp_tab.shape != (4096,)
+            or wt.sse.shape != (COMPACT_RSQ + COMPACT_RCP,)
+            or wt.sse.dtype != torch.int16
             or any(t.dtype != torch.int32
-                   for t in (wt.ent, wt.word, wt.buckets, wt.rsqrt_tab,
-                             wt.rcp_tab))
+                   for t in (wt.ent, wt.word, wt.buckets))
             or not all(t.is_contiguous() for t in tables)):
         raise ValueError("world tables do not have world_to_torch's "
                          "shapes and layout")
@@ -210,27 +218,37 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
 
 
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
-            seed: torch.Tensor, sec, page0: int, width: int | None = None):
-    """Launch the instance cfg selects; width: as trace_wave's.  Returns
-    (fb, dist, tstep): tstep int32 [n_waves, n] from the profile
-    instance, else None."""
+            seed: torch.Tensor, sec, page0: int, width: int | None = None,
+            var: str | None = None):
+    """Launch the instance cfg selects, or measurement instance var;
+    width: as trace_wave's.  Returns (fb, dist, tstep): tstep int32
+    [n_waves, n] from the profile instance, int64 [PHASE_ROWS,
+    len(PHASES)] from the phases instance, else None."""
     global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
-        LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED
+        LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED, \
+        LAUNCHES_PHASES
     n = ifrom.x.shape[0]
     index = seed.get_device()
     # the contiguous copies must outlive the launch: keep them here
     keep = [t.contiguous() for t in (*ifrom, *iray, seed)]
     fb = torch.empty_like(keep[6])
     dist = torch.empty_like(keep[0])
-    var = variant(cfg)
+    var = variant(cfg) if var is None else var
     tstep = (torch.empty((cfg.n_waves, n), dtype=torch.int32,
-                         device=seed.device) if var == "profile" else None)
+                         device=seed.device) if var == "profile"
+             else torch.zeros((PHASE_ROWS, len(PHASES)), dtype=torch.int64,
+                              device=seed.device) if var == "phases"
+             else None)
     stream = current_stream(index)
     args = _pack(wt, cfg, n, [t.data_ptr() for t in keep],
                  (fb.data_ptr(), dist.data_ptr(),
                   tstep.data_ptr() if tstep is not None else 0),
                  _queue(index, stream), sec, page0,
                  cfg.width if width is None else width, var)
+    if var == "phases":
+        _TRACE_VARIANT.on(index, stream, args)
+        LAUNCHES_PHASES += 1
+        return fb, dist, tstep
     if var:
         _TRACE_VARIANT.on(index, stream, args)
         LAUNCHES_VARIANT[var] += 1
@@ -299,3 +317,25 @@ def trace_wave_profile(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return _launch(wt, cfg, ifrom, iray, seed, sec, page0)
+
+
+def trace_wave_phases(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
+                      iray: V3, seed: torch.Tensor, sec, page0: int = 0,
+                      width: int | None = None):
+    """trace_wave in parity mode with one sample through the phases
+    instance, CUDA tensors only: (fb int32 [n] BGRA bits, dist [n],
+    cycles int64 [len(PHASES)]), the warps' clock64() cycles in each
+    region of PHASES, summed over the warps.  A region counts once a warp
+    each time the warp runs it (its lowest active lane times it).  The
+    counters slow the kernel; fb and dist are the parity instance's."""
+    check_config(cfg)
+    if not cfg.parity or cfg.samples != 1 or variant(cfg):
+        raise ValueError("the phases instance traces parity mode, one "
+                         "sample, no other measurement instance")
+    _check_inputs(wt, ifrom, iray, seed, page0)
+    if ifrom.x.device.type != "cuda":
+        raise ValueError(f"unsupported device {ifrom.x.device}: the "
+                         "phases instance runs on the card")
+    fb, dist, cycles = _launch(wt, cfg, ifrom, iray, seed, sec, page0,
+                               width, var="phases")
+    return fb, dist, cycles.sum(0)

@@ -24,7 +24,10 @@ paged world, flattened as page*4096 + cz*64 + cx:
     cell's sphere indices in insertion order (-1 pad; the JAX package's
     [n_pages*4096 * 15] table cut to the k_bucket slots the scan reads),
     and the SSE `rsqrt_tab` [8192] and `rcp_tab` [4096] (uint32 bits held
-    in i32).  The scan reads each sphere's centre and radius from `sph`.
+    in i32), which the plain tracer reads, and their compact form `sse`
+    [4096] i16 (`core.approx.compact_tables`, 8 KB), which the CUDA
+    kernel reads in their place.  The scan reads each sphere's centre and
+    radius from `sph`.
 
 `world_to_torch` takes a numpy `WorldDev` and `WorldMeta` of either
 package (the same fields), one page or a paged atlas
@@ -38,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.approx import compact_tables
 from . import worlddev as W
 
 # sph table columns
@@ -112,6 +116,7 @@ class TorchWorld:
     buckets: torch.Tensor   # [n_pages*4096*k_bucket] i32 sphere ids
     rsqrt_tab: torch.Tensor  # [8192] i32 (uint32 bits)
     rcp_tab: torch.Tensor   # [4096] i32 (uint32 bits)
+    sse: torch.Tensor       # [4096] i16 the two tables' compact form
     n_spheres: int
     k_bucket: int           # bucket slots the parity scan reads
     skip_ok: bool           # meta.has_clear: may the empty-space skip run
@@ -153,14 +158,18 @@ def world_to_torch(world: W.WorldDev, meta: W.WorldMeta,
                          f"{n} spheres")
     sph = sphere_table(world, n)
     bound = sphere_bound(world, n)
+    rsqrt_tab = np.asarray(world.rsqrt_tab, np.uint32)
+    rcp_tab = np.asarray(world.rcp_tab, np.uint32)
+    sse = compact_tables(rsqrt_tab, rcp_tab)
     return TorchWorld(
         ent=_i32(decode_word_np(word, pages > 1), device),
         word=_i32(word, device),
         sph=torch.from_numpy(sph).to(device),
         bound=torch.from_numpy(bound).to(device),
         buckets=_i32(buckets[:, :kb].reshape(-1), device),
-        rsqrt_tab=_i32(np.asarray(world.rsqrt_tab, np.uint32), device),
-        rcp_tab=_i32(np.asarray(world.rcp_tab, np.uint32), device),
+        rsqrt_tab=_i32(rsqrt_tab, device),
+        rcp_tab=_i32(rcp_tab, device),
+        sse=torch.from_numpy(sse.view(np.int16).copy()).to(device),
         n_spheres=n, k_bucket=kb, skip_ok=bool(meta.has_clear),
         slack=float(meta.sph_slack), n_pages=pages,
         sphere_page=int(meta.sphere_page),

@@ -57,6 +57,14 @@ Up to 64 spheres, the object pool's capacity (world/objects.py NS_MAX):
     spheres in open cells in front of the spawn camera, fast mode (or
     parity mode) with the flagship's camera path.
 
+A synthetic world, for holding the parity step's every branch:
+
+  * `fuzz_rays`: the JAX package's fuzz level (tests/test_space_skip.py
+    FUZZ_LEVEL, FUZZ_SPHERES: portals, one of them turning the ray,
+    ramps, fog, a 2-high room with '"' links, six spheres behind
+    portals, in fog and in the 2-high room) and seeded random rays
+    through it, not a camera's.
+
 `mesh_for` gives the device mesh the multi-device path
 (parallel/sharding.py) renders these scenes on: by default one card
 repeated, a virtual mesh.
@@ -79,7 +87,8 @@ from .ops import worlddev as W
 from .ops.world import TorchWorld, world_to_torch
 from .parallel.sharding import Mesh, make_mesh
 from .render.camera import camera_vectors, mat4_identity, mat4_roty
-from .world.levelc import load_level
+from .ops.vec import V3
+from .world.levelc import compile_level, load_level
 from .world.objects import ObjectPool
 from .world.procgen import generate_sector_maze, make_portal_chain
 
@@ -342,3 +351,58 @@ def mesh_for(n_cam: int, n_px: int, device="cuda",
         return make_mesh(n_cam, n_px, [torch.device("cuda", i)
                                        for i in range(n)])
     return make_mesh(n_cam, n_px, [device] * n)
+
+
+# the fuzz level (tests/test_space_skip.py), its spheres (x, y, z,
+# radius), and the points the fuzz rays start near
+FUZZ_LEVEL = b"""................
+.;;;;;;;;;;;;;;.
+.;A;;;;;;;;;;A;.
+.;;;$$$;;;;;;;;.
+.;;;$$$;;B;;;;;.
+.;;;$$$;;;;;;;;.
+.;;;;;>;;;##\x22#.
+.;;B;;;;;;##&#.
+.;;;;;,;;;####.
+.;;;;;;;;;;;;;.
+................
+"""
+FUZZ_SPHERES = [(2.5, 0.4, 2.6, 0.25), (12.2, 0.5, 2.4, 0.2),
+                (6.5, 0.45, 7.5, 0.3), (11.5, 1.4, 7.2, 0.2),
+                (5.5, 0.5, 4.5, 0.35), (9.6, 0.4, 4.4, 0.15)]
+FUZZ_BASES = [(2.5, 0.5, 2.5), (5.0, 0.5, 4.5), (6.5, 0.5, 6.5),
+              (11.5, 0.5, 7.5), (12.5, 0.5, 2.5), (11.5, 1.5, 7.0),
+              (1.5, 0.5, 8.5), (8.5, 0.5, 1.5), (6.5, 0.5, 7.5),
+              (6.5, 0.5, 8.5)]
+
+
+def fuzz_rays(n: int, device="cuda", seed: int = 1, **cfg_kw):
+    """The fuzz level with its six spheres on `device`, in parity mode
+    with maxsteps 200 (cfg_kw override RenderConfig fields), and n rays
+    from `seed`: ray k starts within 0.45 of FUZZ_BASES[k % 10] (-0.4 to
+    0.45 in y) in a uniform direction whose Y component is scaled by
+    U(0.05, 1).  Returns (tworld, cfg, ifrom V3, rays V3, seeds int32
+    [n])."""
+    pool = ObjectPool()
+    for (x, y, z, r) in FUZZ_SPHERES:
+        i = pool.obj_new()
+        pool.obj_set_sphere(i, r, 0.4, x, y, z, 0.8, 0.7, 0.9)
+    world, meta = W.build_world(compile_level(FUZZ_LEVEL),
+                                pool.prepare_render(), SseTables.load())
+    rng = np.random.default_rng(seed)
+    base = np.array(FUZZ_BASES, np.float32)[np.arange(n) % len(FUZZ_BASES)]
+    froms = (base + rng.uniform((-0.45, -0.4, -0.45), (0.45, 0.45, 0.45),
+                                (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:, 1] *= rng.uniform(0.05, 1.0, n)
+    dirs = d.astype(np.float32)
+    seeds = rng.integers(0, 2 ** 31, n).astype(np.int32)
+    cfg = RenderConfig(**{"parity": True, "maxsteps": 200, **cfg_kw})
+
+    def col(a, i):
+        return torch.from_numpy(np.ascontiguousarray(a[:, i])).to(device)
+    return (world_to_torch(world, meta, device), cfg,
+            V3(*(col(froms, i) for i in range(3))),
+            V3(*(col(dirs, i) for i in range(3))),
+            torch.from_numpy(seeds).to(device))

@@ -1,7 +1,8 @@
 """Every rendering instance of the tracer kernel, held against the plain
 tracer and timed on the card.
 
-Traces frame 0 of each case (chip_smoke's scenes and shapes) through
+Traces one frame of each case (chip_smoke's scenes and shapes; frame 0
+but where the case names another) through
 `ops.tracer.trace_wave`, holds fb and zbuf bit for bit against
 `trace_wave_plain`, and times REPS back-to-back launches with CUDA
 events.  It calls only entry points that every version of the port
@@ -49,27 +50,29 @@ REPS = 20
 ISSUE_N = 100          # calls a host-issue reading times
 ISSUE_ROUNDS = 3       # readings a function; the least is kept
 ISSUE_T = 20000        # vpu_chains iterations (fma, S=16, a block an SM)
-# name: (scene builder, width, height, keyword arguments)
+# name: (scene builder, width, height, keyword arguments, frame)
 CASES = {
-    "flagship_1080": (S.flagship_scene, 1920, 1080, {}),
-    "stress_720": (S.stress_scene, 1280, 720, {}),
-    "maze_720": (S.maze_scene, 1280, 720, {}),
-    "maze_samples_160x90": (S.maze_scene, 160, 90, {"samples": 2}),
-    "ptrace_1080": (S.ptrace_scene, 1920, 1080, {}),
-    "fused_1080": (S.flagship_scene, 1920, 1080, {"fused": True}),
-    "fused_stress_720": (S.stress_scene, 1280, 720, {"fused": True}),
-    "fused_320x180": (S.flagship_scene, 320, 180, {"fused": True}),
-    "parity_240": (S.parity_scene, 320, 240, {}),
-    "parity_1080": (S.parity_scene, 1920, 1080, {}),
-    "parity_ptrace_1080": (S.ptrace_scene, 1920, 1080, {"parity": True}),
-    "maze_parity_720": (S.maze_scene, 1280, 720, {"parity": True}),
+    "flagship_1080": (S.flagship_scene, 1920, 1080, {}, 0),
+    "stress_720": (S.stress_scene, 1280, 720, {}, 0),
+    "maze_720": (S.maze_scene, 1280, 720, {}, 0),
+    "maze_samples_160x90": (S.maze_scene, 160, 90, {"samples": 2}, 0),
+    "ptrace_1080": (S.ptrace_scene, 1920, 1080, {}, 0),
+    "fused_1080": (S.flagship_scene, 1920, 1080, {"fused": True}, 0),
+    "fused_stress_720": (S.stress_scene, 1280, 720, {"fused": True}, 0),
+    "fused_320x180": (S.flagship_scene, 320, 180, {"fused": True}, 0),
+    "parity_240": (S.parity_scene, 320, 240, {}, 0),
+    "parity_1080": (S.parity_scene, 1920, 1080, {}, 0),
+    # the frame chip_smoke phase 6 traces at 1080p
+    "parity_1080_f2": (S.parity_scene, 1920, 1080, {}, 2),
+    "parity_ptrace_1080": (S.ptrace_scene, 1920, 1080, {"parity": True}, 0),
+    "maze_parity_720": (S.maze_scene, 1280, 720, {"parity": True}, 0),
     "multicam": None,
 }
 
 
 def case_inputs(name: str, dev) -> tuple:
     """(world, cfg, ifrom, rays, seeds, sec, page0) of the case's frame
-    0 (multicam: step 1 of its 64 cameras)."""
+    (multicam: step 1 of its 64 cameras)."""
     if name == "multicam":
         mc = S.multicam_scene(dev)
         cams, sec = mc.step_args(1)
@@ -77,9 +80,9 @@ def case_inputs(name: str, dev) -> tuple:
             mc.cfg, torch.from_numpy(cams).to(dev),
             pixel_seeds(mc.cfg.width, mc.cfg.height, dev))
         return mc.tworld, mc.cfg, ifrom, rays, seeds, sec, mc.cfg.cam_page
-    make, w, h, kw = CASES[name]
+    make, w, h, kw, k = CASES[name]
     sc = make(w, h, dev, **kw)
-    origin, rayb, rdx, rdy, sec = sc.frame_args(0)
+    origin, rayb, rdx, rdy, sec = sc.frame_args(k)
     ifrom, rays, seeds = frame_rays(sc.cfg, origin, rayb, rdx, rdy, dev)
     return sc.tworld, sc.cfg, ifrom, rays, seeds, sec, sc.cfg.cam_page
 

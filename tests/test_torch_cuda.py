@@ -39,7 +39,10 @@ the primary segment once for all chains, equal plain at ragged shapes,
 samples 2, 3 and 5 and reflect 0, 1 and 6, on the paged maze and on two
 streams at once; the one-chain instances compile to the registers and
 spills they had before.  Phase 20, small: a world of 64 spheres, the
-object pool's capacity, through each rendering instance equals plain."""
+object pool's capacity, through each rendering instance equals plain.
+The parity instance equals plain on seeded random rays through the
+fuzz level (rotated portals, ramps, fog, 2-high cells) at reflect 2 and
+6, and its phases instance gives its bits while counting every region."""
 
 import dataclasses
 import re
@@ -56,10 +59,11 @@ from pwnfps_tpu_torch.parallel.sharding import (_halo, camera_rays,
                                                 render_frame_sharded)
 from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
                                            render_accumulated, render_frame)
-from pwnfps_tpu_torch.scene import (flagship_scene, maze_scene, mesh_for,
-                                    multicam_scene, parity_scene,
+from pwnfps_tpu_torch.scene import (flagship_scene, fuzz_rays, maze_scene,
+                                    mesh_for, multicam_scene, parity_scene,
                                     portal_camera, ptrace_scene,
                                     ring_scene, spheres_scene, stress_scene)
+from pwnfps_tpu_torch.tools import ieee_check
 from pwnfps_tpu_torch.tools.vpu_probe import plane
 
 pytestmark = pytest.mark.cuda
@@ -762,15 +766,17 @@ def test_launch_errors_raise(dev):
 def test_two_launches_and_two_streams(dev, instance):
     """Two launches in a row on one stream, then one on each of two
     streams at once, of each instance at 480x288: 4,320 tiles, more
-    than the persistent instances keep warps resident, so their warps
-    take tiles off the queue, which each launch must leave reset and
-    which two streams must not share.  Each equals the plain trace."""
+    than the persistent instances (samples, fused, parity samples) keep
+    warps resident, so their warps take tiles off the queue, which each
+    launch must leave reset and which two streams must not share; the
+    one-chain instances (fast, parity) launch a warp a tile.  Each
+    equals the plain trace."""
     sc = _instance_scene(instance, 480, 288, dev)
     n = 480 * 288
     n_tiles = len(tracer.warp_tiles(n, 480))
     shape = tracer.launch_shape(sc.cfg, n, 480, sc.tworld.n_pages, dev)
     warps = shape["blocks"] * shape["threads"] // tracer.WARP
-    if instance == "fast":
+    if instance in ("fast", "parity"):
         assert warps >= n_tiles, shape
     else:
         assert warps < n_tiles, (shape, n_tiles)
@@ -844,17 +850,18 @@ def _registers(log: str, tag: str) -> int:
 
 
 # The rendering instances with S = false (one chain a ray), as ptxas
-# reported them before the samples instances' redesign (nvcc 12.8 for
-# sm_90a; registers, stack frame, spill stores, spill loads): the
-# redesign keeps their code.  ILb1ELb0ELb0ELi0ELb1EE, parity with the
-# cell tables in shared memory, is compiled but never launched.
+# reported them (nvcc 12.8 for sm_90a; registers, stack frame, spill
+# stores, spill loads): the fast and fused lines as before the samples
+# instances' redesign, which kept their code; the parity lines since the
+# parity instances' redesign (parity_step, 448-thread blocks under
+# __launch_bounds__(448, 2): at most 72 registers), with no spill.
 ONE_CHAIN_PTXAS = {
     "ILb0ELb0ELb0ELi0ELb1EE": (92, 32, 0, 0),      # fast, one page
     "ILb0ELb0ELb0ELi0ELb0EE": (92, 32, 0, 0),      # fast, paged
     "ILb0ELb0ELb1ELi0ELb1EE": (116, 32, 0, 0),     # fused, one page
     "ILb0ELb0ELb1ELi0ELb0EE": (114, 32, 0, 0),     # fused, paged
-    "ILb1ELb0ELb0ELi0ELb1EE": (83, 0, 0, 0),       # parity, tables T
-    "ILb1ELb0ELb0ELi0ELb0EE": (84, 0, 0, 0),       # parity
+    "ILb1ELb0ELb0ELi0ELb1EE": (70, 0, 0, 0),       # parity, one page
+    "ILb1ELb0ELb0ELi0ELb0EE": (70, 0, 0, 0),       # parity, paged
 }
 
 
@@ -863,3 +870,98 @@ def test_one_chain_instances_compile_as_before(dev):
     log = _build.PTXAS_LOG["tracer"]
     for tag, want in ONE_CHAIN_PTXAS.items():
         assert (_registers(log, tag), *_frame_line(log, tag)) == want, tag
+
+
+@pytest.mark.parametrize("name", list(ieee_check.SETS))
+def test_ieee_intrinsics_equal_integer_emulations(dev, name):
+    """The parity instances' __fsqrt_rn and __fdiv_rn give the bits of
+    core/ieee.py's integer sqrt_rn and div_rn (csrc/ieee_check.cu) over
+    every positive normal f32, 2^28 random pairs and the edge sets."""
+    r = ieee_check.check(name, dev)
+    assert r["pairs"] == ieee_check.SETS[name][1], r
+    assert r["mismatches"] == 0, r
+
+
+# the parity instances' threads a block and blocks an SM, by samples > 1
+# (csrc/tracer_body.cuh Block<true, S, false>)
+PARITY_BLOCK = {False: (448, 2), True: (320, 2)}
+
+
+@pytest.mark.parametrize("world,samples,reflect", [
+    ("one_page", 1, 2), ("one_page", 4, 6), ("paged", 1, 2),
+    ("paged", 2, 2)])
+def test_parity_launch_shape(dev, world, samples, reflect):
+    """The parity instances' dynamic shared memory a block, in words:
+    on a one-page world its cell tables (2 x 4096), then on either
+    world the 64 sphere records (64 x 16), the compact SSE tables (2048
+    words, 8 KB) and the unwind records (6 a wave a thread); two blocks
+    an SM, the one-chain instance's 448-thread blocks at BASELINE config
+    #1's reflect 2 and the samples instance's 320-thread ones up to
+    config #5's reflect 6.  The one-chain instance launches a block for
+    every 14 tiles, the samples instance no more than stay resident."""
+    make = parity_scene if world == "one_page" else maze_scene
+    kw = {} if world == "one_page" else {"parity": True}
+    sc = make(64, 48, dev, samples=samples, reflect=reflect, **kw)
+    threads, per_sm = PARITY_BLOCK[samples > 1]
+    shape = tracer.launch_shape(sc.cfg, 64 * 48, 64, sc.tworld.n_pages,
+                                dev)
+    cells = 2 * 4096 if world == "one_page" else 0
+    words = cells + 64 * 16 + 2048 + (reflect + 1) * 6 * threads
+    assert shape["smem_bytes"] == 4 * words, shape
+    assert shape["threads"] == threads, shape
+    assert shape["blocks_per_sm"] == per_sm, shape
+    n_tiles = len(tracer.warp_tiles(64 * 48, 64))
+    if samples == 1:
+        assert shape["blocks"] == -(-n_tiles // (threads // 32)), shape
+
+
+@pytest.mark.parametrize("reflect", [2, 6])
+def test_parity_fuzz_rays_match_plain(dev, reflect):
+    """The one-page parity instance on 20,000 seeded rays through the
+    fuzz level (scene.fuzz_rays: portals, one of them turning the ray,
+    ramps, fog, 2-high cells with '"' links, spheres behind portals and
+    in fog), rays that are no image: fb and zbuf bit for bit the plain
+    tracer's, at BASELINE config #1's reflect 2 and config #5's 6.  The
+    parity step's branches that the demo-level frames never take."""
+    wt, cfg, ifrom, rays, seeds = fuzz_rays(20000, dev, seed=reflect,
+                                            reflect=reflect)
+    sec = np.float32(0.25)
+    before = tracer.LAUNCHES_PARITY
+    fb_k, z_k = tracer.trace_wave(wt, cfg, ifrom, rays, seeds, sec,
+                                  pack=True, width=0)
+    assert tracer.LAUNCHES_PARITY == before + 1
+    fb_p, z_p = tracer.trace_wave_plain(wt, cfg, ifrom, rays, seeds, sec,
+                                        pack=True)
+    assert len(torch.unique(fb_p)) > 1000
+    msg = (f"fb differs on {(fb_k != fb_p).sum().item()} rays, zbuf on "
+           f"{(z_k.view(torch.int32) != z_p.view(torch.int32)).sum().item()}")
+    assert torch.equal(fb_k, fb_p), msg
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32)), msg
+
+
+@pytest.mark.parametrize("world", ["one_page", "paged"])
+def test_phases_instance_matches_parity(dev, world):
+    """The phases instance (ops/tracer.trace_wave_phases) gives the parity
+    instance's bits, on a one-page and a paged world, and counts cycles
+    in every region; a warp's kernel cycles hold its prologue and its
+    tile."""
+    if world == "one_page":
+        sc = parity_scene(96, 64, dev)
+    else:
+        sc = maze_scene(96, 54, dev, parity=True)
+        sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    call = (sc.tworld, sc.cfg, ifrom, rays, seeds, sec)
+    page0 = sc.cfg.cam_page
+    before = tracer.LAUNCHES_PHASES
+    fb_q, z_q, cycles = tracer.trace_wave_phases(*call, page0=page0)
+    assert tracer.LAUNCHES_PHASES == before + 1
+    fb_k, z_k = tracer.trace_wave(*call, pack=True, page0=page0)
+    assert torch.equal(fb_q, fb_k)
+    assert torch.equal(z_q.view(torch.int32), z_k.view(torch.int32))
+    c = dict(zip(tracer.PHASES, cycles.tolist()))
+    assert all(v > 0 for v in c.values()), c
+    assert c["kernel"] >= c["prologue"] + c["tile"], c
+    with pytest.raises(ValueError):
+        tracer.trace_wave_phases(sc.tworld, dataclasses.replace(
+            sc.cfg, parity=False), *call[2:], page0=page0)
