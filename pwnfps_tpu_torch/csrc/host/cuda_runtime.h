@@ -1,15 +1,18 @@
-// What csrc/tracer_body.cuh takes from the CUDA runtime, for a host C++
-// compiler (tools/host_trace.py): the qualifiers vanish, the intrinsics
-// become their host meaning (__fdiv_rn and __fsqrt_rn the host's IEEE
-// round-to-nearest-even division and root), one thread, one lane, and
-// the runtime's calls are declared, never defined: the host build calls
-// no launch path.
+// What csrc/tracer_body.cuh and csrc/blur.cu take from the CUDA runtime,
+// for a host C++ compiler (tools/host_trace.py, tools/host_blur.py): the
+// qualifiers vanish, the intrinsics become their host meaning (the _rn
+// arithmetic the host's IEEE round-to-nearest-even operations, built
+// with no contraction; __float2int_rz saturating as cvt.rzi does: NaN to
+// 0, out of range to INT_MIN or INT_MAX), one thread, one lane, and the
+// runtime's calls are declared, never defined: the host build calls no
+// launch path.
 #pragma once
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <cfenv>
 #define __device__
 #define __global__
 #define __host__
@@ -26,7 +29,10 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorMisalignedAddress = 716 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
-struct dim3 { unsigned x, y, z; };
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 extern dim3 threadIdx, blockIdx, blockDim, gridDim;
 cudaError_t cudaGetDevice(int*);
 cudaError_t cudaGetLastError();
@@ -40,7 +46,26 @@ inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f;
 inline float __int_as_float(int u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
 inline int __float_as_int(float f) { int u; memcpy(&u, &f, 4); return u; }
-inline int __float2int_rz(float f) { return (int)f; }
+inline int __float2int_rz(float f) {
+    if (f != f) return 0;
+    if (f >= 2147483648.0f) return 2147483647;
+    if (f <= -2147483648.0f) return -2147483647 - 1;
+    return (int)f;
+}
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+// a + b rounded toward zero: the host's own add under FE_TOWARDZERO, its
+// operands and result volatile so that the add stays between the two
+// rounding-mode switches
+inline float __fadd_rz(float a, float b) {
+    volatile float va = a, vb = b;
+    const int mode = fegetround();
+    fesetround(FE_TOWARDZERO);
+    volatile float r = va + vb;
+    fesetround(mode);
+    return r;
+}
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
@@ -54,6 +79,7 @@ inline unsigned __activemask() { return 1; }
 template <class T> T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
 template <class T> T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
 template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 inline void __syncthreads() {}
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline void __threadfence() {}

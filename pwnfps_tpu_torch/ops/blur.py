@@ -18,9 +18,9 @@ clamped to the frame, `fstr` from the frame's height.
 bands (pwnfps_tpu/ops/blur.py:dof_blur_band), the form the multi-device
 path blurs in (parallel/sharding._dof_blur_mesh): each band carries H
 halo rows above and below and comes out bit-identical to its rows of the
-full-frame blur.  The CUDA entry is the second kernel of csrc/blur.cu,
-which replaces the band mode of the same TPU kernel
-(blur_pallas.py:_dof_blur_band).
+full-frame blur.  The CUDA entry is the second C entry of csrc/blur.cu,
+the same kernel body on the bands' geometry, which replaces the band
+mode of the same TPU kernel (blur_pallas.py:_dof_blur_band).
 """
 
 from __future__ import annotations
@@ -256,8 +256,8 @@ def _launch_band(fb_pad: torch.Tensor, zb: torch.Tensor, y0: int,
 def dof_blur_band(fb_pad: torch.Tensor, zb: torch.Tensor, y0: int,
                   fh: int) -> torch.Tensor:
     """One DoF pass on the row bands of cl stacked cameras (see
-    dof_blur_band_plain for the arguments): the band kernel of
-    csrc/blur.cu for CUDA tensors, one launch covering every camera, the
+    dof_blur_band_plain for the arguments): csrc/blur.cu's kernel on the
+    bands for CUDA tensors, one launch covering every camera, the
     plain pass for CPU tensors.  The caller decides that the taps reach
     no further than the halo; the pass does not check."""
     if fb_pad.dim() != 3 or zb.dim() != 3 or fb_pad.shape[0] != zb.shape[0] \

@@ -38,7 +38,13 @@ that refuses its arguments raises.  The samples instances, which shade
 the primary segment once for all chains, equal plain at ragged shapes,
 samples 2, 3 and 5 and reflect 0, 1 and 6, on the paged maze and on two
 streams at once; the one-chain instances compile to the registers and
-spills they had before.  Phase 20, small: a world of 64 spheres, the
+spills they had before, and the blur's four instances the registers
+recorded for them with no spill.  The blur kernel also equals its plain
+version on depths that mix tiles it stages a tap window for with tiles
+over the window's cap (NaN, +-inf, +-1e30; 1080p, 720p, ragged, stacked,
+unaligned, more row tiles than the grid holds) and, in its band form, on
+the flagship's 8 bands and on bands whose taps fall past a 2-row halo.
+Phase 20, small: a world of 64 spheres, the
 object pool's capacity, through each rendering instance equals plain.
 The parity instance equals plain on seeded random rays through the
 fuzz level (rotated portals, ramps, fog, 2-high cells) at reflect 2 and
@@ -63,7 +69,7 @@ from pwnfps_tpu_torch.scene import (flagship_scene, fuzz_rays, maze_scene,
                                     mesh_for, multicam_scene, parity_scene,
                                     portal_camera, ptrace_scene,
                                     ring_scene, spheres_scene, stress_scene)
-from pwnfps_tpu_torch.tools import ieee_check
+from pwnfps_tpu_torch.tools import host_blur, ieee_check
 from pwnfps_tpu_torch.tools.vpu_probe import plane
 
 pytestmark = pytest.mark.cuda
@@ -105,6 +111,41 @@ def test_blur_kernel_equals_plain(dev, h, w, passes):
     assert blur.LAUNCHES == before + passes
     want = blur.dof_blur_plain(fb_t, z_t, passes)
     assert torch.equal(got, want)
+
+
+# (h, w, frames, how): depths that mix tiles the kernel stages a window
+# for with tiles over its cap, NaN, +-inf and +-1e30 (host_blur.
+# reach_frame); "unaligned": fb one word past a 16-byte boundary, so the
+# window takes 4-byte copies although w % 4 == 0
+@pytest.mark.parametrize("h,w,nf,how", [(1080, 1920, 1, ""),
+                                        (720, 1280, 1, ""),
+                                        (150, 203, 1, ""),
+                                        (120, 160, 64, ""),
+                                        (200, 131, 3, ""),
+                                        (136, 256, 2, "unaligned")])
+def test_blur_kernel_reach_mixes(dev, h, w, nf, how):
+    fb, z = host_blur.reach_frame(h, w, h * w + nf, nf)
+    fb, z = fb.to(dev), z.to(dev)
+    if how == "unaligned":
+        buf = torch.empty(fb.numel() + 1, dtype=torch.int32, device=dev)
+        buf[1:] = fb.view(-1)
+        fb = buf[1:].view(fb.shape)
+        assert fb.data_ptr() % 16 == 4
+    before = (blur.LAUNCHES, blur.LAUNCHES_FRAMES)
+    got = blur.dof_blur(fb, z, 1, frame_h=h)
+    assert (blur.LAUNCHES, blur.LAUNCHES_FRAMES) == (before[0] + 1,
+                                                     before[1] + (nf > 1))
+    assert torch.equal(got, blur.dof_blur_plain(fb, z, 1, frame_h=h))
+
+
+def test_blur_kernel_tiles_past_the_grid(dev):
+    """65,600 stacked 16-row frames 7 wide: more row tiles than the
+    grid's 65,535, so blocks take a second tile by the stride loop."""
+    h, w, nf = 16, 7, 65600
+    fb, z = host_blur.reach_frame(h, w, 5, nf, extremes=False)
+    fb, z = fb.to(dev), z.to(dev)
+    got = blur.dof_blur(fb, z, 1, frame_h=h)
+    assert torch.equal(got, blur.dof_blur_plain(fb, z, 1, frame_h=h))
 
 
 @pytest.mark.parametrize("frame", [1, 4])
@@ -302,6 +343,23 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
                           pack=True)
     with pytest.raises(NotImplementedError):          # unpacked colour
         tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds, 0.0)
+
+
+# (h, w, cl, rows a band, halo): the flagship's 8 bands of 136 rows and
+# the mesh's 48-row halo, a w % 4 == 3 frame in 8-row bands, and bands
+# with a 2-row halo whose taps fall one row past the buffer
+@pytest.mark.parametrize("h,w,cl,hb,halo", [(1080, 1920, 2, 136, 48),
+                                            (200, 203, 3, 8, 48),
+                                            (75, 132, 2, 24, 2)])
+def test_band_blur_kernel_reach_mixes(dev, h, w, cl, hb, halo):
+    fb, z = host_blur.reach_frame(h, w, h + w + cl, cl)
+    fb, z = fb.view(cl, h, w).to(dev), z.view(cl, h, w).to(dev)
+    for fp, zb, y0 in host_blur.band_inputs(fb, z, hb, halo, -(-h // hb)):
+        before = (blur.LAUNCHES, blur.LAUNCHES_BAND)
+        got = blur.dof_blur_band(fp, zb, y0, h)
+        assert (blur.LAUNCHES, blur.LAUNCHES_BAND) == (before[0],
+                                                       before[1] + 1)
+        assert torch.equal(got, blur.dof_blur_band_plain(fp, zb, y0, h)), y0
 
 
 @pytest.mark.parametrize("h,w,hb,cl", [(64, 130, 16, 2), (200, 203, 32, 3)])
@@ -869,6 +927,26 @@ def test_one_chain_instances_compile_as_before(dev):
     _build.build_all(["tracer"])
     log = _build.PTXAS_LOG["tracer"]
     for tag, want in ONE_CHAIN_PTXAS.items():
+        assert (_registers(log, tag), *_frame_line(log, tag)) == want, tag
+
+
+# The blur kernel's instances (csrc/blur.cu dof_blur_tiles<TW, TH>), as
+# ptxas reported them (nvcc 12.8 for sm_90a; registers, stack frame,
+# spill stores, spill loads): no stack, no spill; the 64 x 32 instance,
+# the one that stages a tap window, at the 64 registers that four blocks
+# of 256 threads an SM leave each thread.
+BLUR_PTXAS = {
+    "dof_blur_tilesILi64ELi32E": (64, 0, 0, 0),
+    "dof_blur_tilesILi64ELi16E": (48, 0, 0, 0),
+    "dof_blur_tilesILi32ELi32E": (48, 0, 0, 0),
+    "dof_blur_tilesILi32ELi16E": (48, 0, 0, 0),
+}
+
+
+def test_blur_instances_compile_as_recorded(dev):
+    _build.build_all(["blur"])
+    log = _build.PTXAS_LOG["blur"]
+    for tag, want in BLUR_PTXAS.items():
         assert (_registers(log, tag), *_frame_line(log, tag)) == want, tag
 
 
