@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -93,10 +94,23 @@ def build_all(names) -> dict[str, str]:
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs[name] = (proc, tmp, src, so, time.perf_counter())
+    # each process's output read by a thread of its own, so that each
+    # build's seconds end when its own nvcc does
+    outs = {}
+
+    def finish(name, proc):
+        outs[name] = (*proc.communicate(), time.perf_counter())
+
+    readers = [threading.Thread(target=finish, args=(name, job[0]))
+               for name, job in jobs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     failed = []
     for name, (proc, tmp, src, so, t0) in jobs.items():
+        stdout, stderr, t1 = outs[name]
         try:
-            stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"nvcc failed on {src}:\n{stdout}\n{stderr}")
                 continue
@@ -104,7 +118,7 @@ def build_all(names) -> dict[str, str]:
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_SECONDS[name] = t1 - t0
         PTXAS_LOG[name] = stderr
         with open(so[:-3] + ".log", "w") as f:
             f.write(stderr)

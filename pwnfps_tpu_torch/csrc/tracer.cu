@@ -2,7 +2,8 @@
 // mode (one sample, samples > 1, the fused wave loop) and parity mode (one
 // sample, samples > 1), each on one page or a paged world.  The kernel,
 // and what bounds it, is in tracer_body.cuh; the measurement instances
-// build apart, in tracer_variants.cu.
+// build apart, in tracer_variants.cu, tracer_parity_variants.cu and
+// tracer_flags.cu.
 
 #include "tracer_body.cuh"
 
@@ -32,7 +33,8 @@ int launch(const Params& a, void* stream) {
 // [n_pages * 4096 * k_bucket] i32 and the SSE tables' compact form sse
 // [4096] u16 (core/approx.py compact_tables; 16-byte aligned), and
 // ignores bound, skip and slack.  Output: out_fb i32 [n] packed BGRA of the chains' mean
-// and out_dist f32 [n] primary-wave distance.  width: the rays are a
+// (or, with out_col set, out_col f32 [4, n], the mean's B, G, R and A
+// planes) and out_dist f32 [n] primary-wave distance.  width: the rays are a
 // row-major image this wide (each warp traces an 8x4-pixel tile of it),
 // or 0 (each warp 32 consecutive rays); queue: i32 [2] of zeros that only
 // launches on `stream` use, from which the persistent instances (samples

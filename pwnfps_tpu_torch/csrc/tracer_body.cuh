@@ -61,20 +61,33 @@
 //     rounded up to step_chunk, held per lane (a segment ending on the
 //     last iteration is still shaded).  A fifth instance (F = true) of
 //     the same march, step body and shading;
-//   * the measurement instances (V != VAR_NONE; entry
-//     pwnfps_trace_variant of tracer_variants.cu): fast mode, one sample,
-//     unfused, one page or paged, one instance a variant, each the TPU
-//     kernel's instance for that RenderConfig - profile (each wave's
+//   * the measurement instances (V != VAR_NONE), each the TPU kernel's
+//     instance for its RenderConfig knobs - profile (each wave's
 //     terminal DDA step count a ray, tracer_core.py:1436-1456, written to
 //     a third output), nowater (the flat floor normal, :1719-1722) and the
 //     eight calibration pads of RenderConfig.probe (fire1 :717, fetch2x
-//     :1082, pad64 .. cmp64 :1217-1290).  A pad's result replaces fog or
-//     tmeta only where cdist > -1e30f is false, which the compiler cannot
-//     know is never, so the pad is computed and the bits stay those of
-//     the base instance.  One more, phases (VAR_PHASES), is parity mode's
+//     :1082, pad64 .. cmp64 :1217-1290): one knob in fast mode with one
+//     sample (entry pwnfps_trace_variant of tracer_variants.cu) and in
+//     parity mode with one sample (pwnfps_trace_parity_variant of
+//     tracer_parity_variants.cu), one instance a knob; every other
+//     combination - several knobs, samples > 1 in either mode, the fused
+//     loop - in one instance a structure that reads its knobs at run
+//     time (VAR_FLAGS, pwnfps_trace_flags of tracer_flags.cu), whose
+//     uniform branches leave the one-knob instances to price a pad.  A
+//     pad's result replaces fog or tmeta only where cdist > -1e30f is
+//     false, which the compiler cannot know is never, so the pad is
+//     computed and the bits stay those of the base instance; parity_step
+//     runs the pads over segment_body's operands and masks, those of the
+//     lane's outcome.  One more, phases (VAR_PHASES), is parity mode's
 //     one-chain instance with clock64() counters around its regions
 //     (phase_add), for tools/phase_split.py.  Each `if constexpr` on V
 //     compiles away in the other instances, so they keep their code.
+//
+// Every instance packs the colour to BGRA8, or with Params.out_col set
+// writes it unpacked, four f32 planes B, G, R, A (the TPU kernel's
+// pack=False outputs, tracer_pallas.py:652-661): a uniform branch at the
+// end of a ray, which left every rendering instance's registers, stack
+// and spills as they were (ptxas, nvcc 12.8).
 //
 // What bounds it on the H100: issue and latency, not bandwidth.  A ray's
 // work is a data-dependent loop (a few steps for a wall hit, up to the
@@ -190,7 +203,15 @@ namespace {
 constexpr int VAR_NONE = 0, VAR_NOWATER = 1, VAR_PROFILE = 2, VAR_FIRE1 = 3,
               VAR_FETCH2X = 4, VAR_PAD64 = 5, VAR_PAD64D = 6, VAR_SEL64 = 7,
               VAR_BOOL128 = 8, VAR_INT128 = 9, VAR_CMP64 = 10,
-              VAR_PHASES = 11;
+              VAR_PHASES = 11, VAR_FLAGS = 12;
+// VAR_FLAGS reads its knobs at run time from Params.flags: a probe's
+// VAR_* (0: none) in the low 4 bits, and FLAG_NOWATER
+constexpr int FLAG_NOWATER = 16;
+
+// a calibration pad's instance: pad64 .. cmp64
+__host__ __device__ constexpr bool is_pad(int V) {
+    return V >= VAR_PAD64 && V <= VAR_CMP64;
+}
 // VAR_PHASES's regions (ops/tracer.py PHASES, in this order): the block's
 // prologue, a tile's trace, a segment's march (its start, its steps and
 // their loop), the DDA steps, a wave's shading, the unwind, and the whole
@@ -270,7 +291,44 @@ struct World {
     int k_bucket;
     const uint16_t* sse;     // shared memory: the compact SSE tables
     unsigned long long* phases;  // VAR_PHASES: [PHASE_ROWS, N_PHASES]
+    int flags;               // VAR_FLAGS: Params.flags
 };
+
+// The probe instance V runs (a VAR_* pad or probe, or VAR_NONE): V
+// itself, or the one VAR_FLAGS's Params.flags names
+template <int V>
+__device__ __forceinline__ int probe_of(const World& w) {
+    if constexpr (V == VAR_FLAGS) return w.flags & 15;
+    return V;
+}
+
+// whether instance V shades the water floor with the flat normal
+template <int V>
+__device__ __forceinline__ bool nowater(const World& w) {
+    if constexpr (V == VAR_FLAGS) return (w.flags & FLAG_NOWATER) != 0;
+    return V == VAR_NOWATER;
+}
+
+// whether instance V counts each wave's terminal step (VAR_FLAGS writes
+// them where Params.out_tstep is set)
+__host__ __device__ constexpr bool profiles(int V) {
+    return V == VAR_PROFILE || V == VAR_FLAGS;
+}
+
+// A value the compiler must compute here and may not fold: an empty asm
+// statement that takes it in a register (the host build's SSE register
+// for a float)
+__device__ __forceinline__ void keep(float& x) {
+#ifdef __CUDACC__
+    asm volatile("" : "+f"(x));
+#else
+    asm volatile("" : "+x"(x));
+#endif
+}
+
+__device__ __forceinline__ void keep(int& x) {
+    asm volatile("" : "+r"(x));
+}
 
 // VAR_PHASES: the clock at a region's start, and (phase_add) the warp's
 // lowest active lane adding the cycles since then to region k of its
@@ -761,6 +819,105 @@ __device__ __forceinline__ void ramp_tilt(const Seg& s, int cls, float& tilt,
         * (P ? __fdiv_rn(1.0f, ay2) : 1.0f / ay2);
 }
 
+// Calibration pad K (tracer_core.py:1217-1290) over a step's values vs
+// (pos, ray, wx, wz), its live masks ms and cell-class masks ns, the
+// mul+add chains by mul and add: the result replaces fog (pad64, pad64d,
+// sel64, cmp64) or tmeta (bool128, int128) only where opq is false
+template <int K>
+__device__ __forceinline__ void pad(const float vs[8], float mul, float add,
+                                    const bool ms[8], const bool ns[8],
+                                    bool opq, float& fog, int& tmeta) {
+    if constexpr (K == VAR_PAD64) {             // 8 x 8 mul+add chains
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            float u = vs[j];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) u = u * mul + add;
+            acc = j == 0 ? u : acc + u;
+        }
+        fog = opq ? fog : acc;
+    } else if constexpr (K == VAR_PAD64D) {     // one 64-step chain
+        float u = vs[0];
+#pragma unroll
+        for (int k = 0; k < 64; ++k) u = u * mul + add;
+        fog = opq ? fog : u;
+    } else if constexpr (K == VAR_SEL64 || K == VAR_CMP64) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            float u = vs[j];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                if constexpr (K == VAR_SEL64) {     // 8-deep select chains
+                    // every link's alternate opaque to the compiler:
+                    // with one repeated operand, a chain folds into an
+                    // and-reduction and one select
+                    float alt = vs[(j + 1) % 8];
+                    keep(alt);
+                    u = ms[k] ? u : alt;
+                } else                              // compare + select
+                    u = u < vs[(j + k + 1) % 8] ? u : vs[(j + k) % 8];
+            }
+            acc = j == 0 ? u : acc + u;
+        }
+        fog = opq ? fog : acc;
+    } else {        // bool128 on predicates, int128 on {0, 1} words
+        using M = std::conditional_t<K == VAR_INT128, int, bool>;
+        M acc = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const M m = ms[j];
+            M u = m;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) u = u ^ (m & (M)ns[k]);
+            acc = j == 0 ? u : (M)(acc | u);
+        }
+        tmeta = opq ? tmeta : (acc ? 1 : 2);
+    }
+}
+
+// The pad of instance V, if it has one (VAR_FLAGS: the one its flags
+// name); pad's arguments
+template <int V>
+__device__ __forceinline__ void apply_pad(const World& w, const float vs[8],
+                                          float mul, float add,
+                                          const bool ms[8], const bool ns[8],
+                                          bool opq, float& fog, int& tmeta) {
+    if constexpr (V == VAR_FLAGS) {
+        switch (w.flags & 15) {
+            case VAR_PAD64:
+                pad<VAR_PAD64>(vs, mul, add, ms, ns, opq, fog, tmeta);
+                break;
+            case VAR_PAD64D:
+                pad<VAR_PAD64D>(vs, mul, add, ms, ns, opq, fog, tmeta);
+                break;
+            case VAR_SEL64:
+                pad<VAR_SEL64>(vs, mul, add, ms, ns, opq, fog, tmeta);
+                break;
+            case VAR_BOOL128:
+                pad<VAR_BOOL128>(vs, mul, add, ms, ns, opq, fog, tmeta);
+                break;
+            case VAR_INT128:
+                pad<VAR_INT128>(vs, mul, add, ms, ns, opq, fog, tmeta);
+                break;
+            case VAR_CMP64:
+                pad<VAR_CMP64>(vs, mul, add, ms, ns, opq, fog, tmeta);
+                break;
+            default:
+                break;
+        }
+    } else if constexpr (is_pad(V)) {
+        pad<V>(vs, mul, add, ms, ns, opq, fog, tmeta);
+    }
+}
+
+// segment_body's masks that a calibration pad reads (its ms and ns),
+// as parity_core reports a lane's outcome
+constexpr int O_XSTEP = 1, O_ZSTEP = 2, O_TERM = 4, O_PGO = 8, O_CONT = 16,
+              O_MY2 = 32, O_FT = 64, O_NEAR = 128, O_SPHM = 256,
+              O_WALLT = 512;
+
 // One DDA step of an active lane in parity mode (tracer_core.
 // segment_body with the cell's sphere buckets scanned): segment_body's
 // masks, which pick one outcome a lane, resolved here by branches on
@@ -770,15 +927,42 @@ __device__ __forceinline__ void ramp_tilt(const Seg& s, int cls, float& tilt,
 // exit and the Y hit, a ramp's Y hit, then on any marchable cell the X/Z
 // step (or the 2-high wall it meets), else a portal cell's jump or end,
 // a wall, or nothing; a lane that stays active meets the end-of-step
-// sphere check.  T: as fetch.
-template <bool T>
-__device__ void parity_step(const World& w, Seg& s) {
+// sphere check.  T: as fetch.  V: the measurement instance (VAR_*):
+// fire1 computes the portal jump and the ramp tilt every step (the JAX
+// step's event branch, which parity mode fires with the bucket scan,
+// tracer_core.py:717, :866), fetch2x fetches twice; returns the masks of
+// segment_body that the pads read (O_*), those of the lane's outcome.
+template <int V, bool T>
+__device__ int parity_core(const World& w, Seg& s) {
+    // the pads' data-opaque select: true unless cdist is NaN
+    const bool opq = s.cdist > -1e30f;
     if (w.k_bucket > 0) sphere_pass(w, s);
     const int cls = s.ent & 0xF;
     const bool is_ramp = bit(RAMPS, cls);
     const bool has_aux = s.aux_dist != -1.0f;
     const float fire = s.aux_dist;
     const bool sgt = s.cdist > fire;
+    int o = 0;                               // the outcome's masks (O_*)
+    if constexpr (V == VAR_FIRE1 || V == VAR_FLAGS) {
+        if (probe_of<V>(w) == VAR_FIRE1) {
+            // the event bodies on every step; their results are kept in
+            // registers here and read only where the cell's class asks
+            Jump jf = portal_jump<T>(w, s);
+            float tf = 0.0f, wf = 0.0f;
+            ramp_tilt<true>(s, cls, tf, wf);
+            keep(jf.dpage);
+            keep(jf.pkind);
+            keep(jf.ldir);
+            keep(jf.cx);
+            keep(jf.cz);
+            keep(jf.px);
+            keep(jf.pz);
+            keep(jf.vx);
+            keep(jf.vz);
+            keep(tf);
+            keep(wf);
+        }
+    }
     float tilt = 0.0f, wy_ramp = 0.0f;
     if (is_ramp) ramp_tilt<true>(s, cls, tilt, wy_ramp);
     const float ray_y2 = s.ry + tilt;
@@ -787,7 +971,7 @@ __device__ void parity_step(const World& w, Seg& s) {
         s.ry = ray_y2;
         s.cdist = s.aux_dist;
         s.active = false;
-        return;
+        return O_TERM | O_SPHM;
     }
     const bool is_tall = bit(TALLS, cls);
     const bool is_fogc = bit(FOGC, cls);
@@ -812,7 +996,7 @@ __device__ void parity_step(const World& w, Seg& s) {
             s.cdist = s.aux_dist;
             s.fog = s.fog + extra;
             s.active = false;
-            return;
+            return O_TERM | O_SPHM;
         }
         const float fog2 = is_fogc ? s.fog + (cdist2 - s.cdist) : s.fog;
         if (ymin) {                          // floor, ceiling or ramp hit
@@ -827,7 +1011,7 @@ __device__ void parity_step(const World& w, Seg& s) {
             s.fog = fog2;
             s.ldir = is_ramp ? (ray_y2 < 0.0f ? FYN : FYP) : ldir2;
             s.active = false;
-            return;
+            return O_TERM | O_NEAR | O_MY2 | O_WALLT | (is_ramp ? 0 : O_FT);
         }
         // the X/Z step and the one fetch
         const float sub = xstep ? wx : wz;
@@ -839,7 +1023,16 @@ __device__ void parity_step(const World& w, Seg& s) {
         const int cz2 = s.cz + (xstep ? 0 : s.gz);
         const float ray_y3 = is_ramp ? ray_y2 - tilt : ray_y2;
         if (is_ramp) wny = (ray_y3 >= 0.0f ? 1.0f - p2y : p2y) * s.iy;
-        const int f_next = fetch<T>(w, cx2, cz2, s.page);
+        int f_next = fetch<T>(w, cx2, cz2, s.page);
+        if constexpr (V == VAR_FETCH2X || V == VAR_FLAGS) {
+            if (probe_of<V>(w) == VAR_FETCH2X) {
+                // a second fetch at a runtime-equal index
+                // (tracer_core.py:1082)
+                const int dup = fetch<T>(w, cx2, cz2 + (opq ? 0 : 1),
+                                         s.page);
+                f_next = opq ? f_next : dup;
+            }
+        }
         // transitions
         const int ncls = f_next & 0xF;
         float pos3y = p2y;
@@ -863,12 +1056,15 @@ __device__ void parity_step(const World& w, Seg& s) {
         s.pz = p2z;
         s.cdist = cdist2;
         s.fog = fog2;
+        const int o_step = (xstep ? O_XSTEP : O_ZSTEP)
+            | (is_ramp ? 0 : O_FT);
         if (chk && xc != 1) {                // a 2-high wall
             s.tmeta = T_WALL | (C_WALL << 2);
             s.ldir = ldir2;
             s.active = false;
-            return;
+            return o_step | O_TERM | O_NEAR | O_WALLT;
         }
+        o = o_step | O_CONT;
         s.ent = f_next;
         s.ry = ray_y3;
         s.wx = wnx;
@@ -883,6 +1079,13 @@ __device__ void parity_step(const World& w, Seg& s) {
         const Jump j = cls == PORTAL ? portal_jump<T>(w, s) : Jump{};
         if (cls == PORTAL && j.pkind == 1) {    // through the portal
             s.ent = fetch<T>(w, j.cx, j.cz, j.dpage);
+            if constexpr (V == VAR_FETCH2X || V == VAR_FLAGS) {
+                if (probe_of<V>(w) == VAR_FETCH2X) {
+                    const int dup = fetch<T>(w, j.cx, j.cz + (opq ? 0 : 1),
+                                             j.dpage);
+                    s.ent = opq ? s.ent : dup;
+                }
+            }
             s.page = j.dpage;
             s.px = j.px;
             s.pz = j.pz;
@@ -897,6 +1100,7 @@ __device__ void parity_step(const World& w, Seg& s) {
             s.cx = j.cx;
             s.cz = j.cz;
             s.ldir = j.ldir;
+            o = O_PGO;
         } else if (cls == WALL || j.pkind >= 2) {  // a wall, a bad portal
             if (has_aux && sgt) {
                 s.tmeta = T_SPHERE;
@@ -908,7 +1112,7 @@ __device__ void parity_step(const World& w, Seg& s) {
                 s.tmeta = T_WALL | (colid << 2);
             }
             s.active = false;
-            return;
+            return O_TERM | (has_aux && sgt ? O_SPHM : O_WALLT);
         }
     }
     // ---- end-of-iteration sphere check ----
@@ -916,6 +1120,45 @@ __device__ void parity_step(const World& w, Seg& s) {
         s.tmeta = T_SPHERE;
         s.cdist = s.aux_dist;
         s.active = false;
+    }
+    return o;
+}
+
+// One DDA step of an active lane in parity mode: parity_core, and for
+// the pad instances the pad over segment_body's operands, from the
+// step's starting state and the masks of the lane's outcome.  The pad
+// comes after the end-of-iteration sphere check here and before it in
+// segment_body, which is the same wherever cdist is a number.
+template <int V, bool T>
+__device__ __forceinline__ void parity_step(const World& w, Seg& s) {
+    if constexpr (is_pad(V) || V == VAR_FLAGS) {
+        if (V == VAR_FLAGS && !is_pad(probe_of<V>(w))) {
+            parity_core<V, T>(w, s);
+            return;
+        }
+        const int cls = s.ent & 0xF;
+        const bool is_ramp = bit(RAMPS, cls);
+        const bool is_tall = bit(TALLS, cls);
+        float tilt = 0.0f, wy_ramp = 0.0f;
+        if (is_ramp) ramp_tilt<true>(s, cls, tilt, wy_ramp);
+        const float wy = is_tall ? (s.gy > 0 ? s.wy + s.iy : s.wy)
+                                 : (is_ramp ? wy_ramp : s.wy);
+        const bool ymin = wy < s.wx && wy < s.wz;
+        const bool xmin = !ymin && s.wx < s.wz;
+        const float t = ymin ? wy : (xmin ? s.wx : s.wz);
+        const float vs[8] = {s.px, s.py, s.pz, s.rx, s.ry, s.rz, s.wx, s.wz};
+        const float mul = s.rx, add = s.pz + s.rz * t;
+        const bool opq = s.cdist > -1e30f;
+        const int o = parity_core<V, T>(w, s);
+        const bool ms[8] = {(o & O_XSTEP) != 0, (o & O_ZSTEP) != 0,
+                            (o & O_TERM) != 0, (o & O_PGO) != 0,
+                            (o & O_CONT) != 0, (o & O_MY2) != 0, ymin, xmin};
+        const bool ns[8] = {cls == WALL, is_tall, is_ramp, cls == PORTAL,
+                            (o & O_FT) != 0, (o & O_NEAR) != 0,
+                            (o & O_SPHM) != 0, (o & O_WALLT) != 0};
+        apply_pad<V>(w, vs, mul, add, ms, ns, opq, s.fog, s.tmeta);
+    } else {
+        parity_core<V, T>(w, s);
     }
 }
 
@@ -931,16 +1174,21 @@ __device__ void segment_body(const World& w, Seg& s) {
     const bool opq = s.cdist > -1e30f;
 
     // ---- rare events: sphere refresh, portal targets, ramp ----
-    if constexpr (V == VAR_FIRE1) {
-        // the refresh on every step, on a copy the lane keeps only when
-        // its own bit asks for it (tracer_core.py:717)
-        if (has_sph) {
-            Seg t = s;
-            const int rel = sphere_all(w, t, true, true);
-            if (s.sph_dirty & 1) {
-                s = t;
-                s.sph_dirty = rel;
+    const bool fire1 = probe_of<V>(w) == VAR_FIRE1;
+    if constexpr (V == VAR_FIRE1 || V == VAR_FLAGS) {
+        if (fire1) {
+            // the refresh on every step, on a copy the lane keeps only
+            // when its own bit asks for it (tracer_core.py:717)
+            if (has_sph) {
+                Seg t = s;
+                const int rel = sphere_all(w, t, true, true);
+                if (s.sph_dirty & 1) {
+                    s = t;
+                    s.sph_dirty = rel;
+                }
             }
+        } else if (has_sph && (s.sph_dirty & 1)) {
+            s.sph_dirty = sphere_all(w, s, true, true);
         }
     } else if (has_sph && (s.sph_dirty & 1)) {
         s.sph_dirty = sphere_all(w, s, true, true);
@@ -951,7 +1199,7 @@ __device__ void segment_body(const World& w, Seg& s) {
     j.dpage = s.page;
     bool nr = false;
     // fire1: the portal targets on every step; only pgo lanes read them
-    if (V == VAR_FIRE1 || is_portal) {
+    if (fire1 || is_portal) {
         j = portal_jump<T>(w, s);
         if (has_sph) nr = sphere_rel(w, j.px, j.pz, j.vx, j.vz, j.dpage);
     }
@@ -1046,12 +1294,15 @@ __device__ void segment_body(const World& w, Seg& s) {
     if (stepped || pgo) {
         f_next = pgo ? fetch<T>(w, j.cx, j.cz, j.dpage)
                      : fetch<T>(w, cx2, cz2, s.page);
-        if constexpr (V == VAR_FETCH2X) {
-            // a second fetch at a runtime-equal index (tracer_core.py:1082)
-            const int dz = opq ? 0 : 1;
-            const int dup = pgo ? fetch<T>(w, j.cx, j.cz + dz, j.dpage)
-                                : fetch<T>(w, cx2, cz2 + dz, s.page);
-            f_next = opq ? f_next : dup;
+        if constexpr (V == VAR_FETCH2X || V == VAR_FLAGS) {
+            if (probe_of<V>(w) == VAR_FETCH2X) {
+                // a second fetch at a runtime-equal index
+                // (tracer_core.py:1082)
+                const int dz = opq ? 0 : 1;
+                const int dup = pgo ? fetch<T>(w, j.cx, j.cz + dz, j.dpage)
+                                    : fetch<T>(w, cx2, cz2 + dz, s.page);
+                f_next = opq ? f_next : dup;
+            }
         }
     }
 
@@ -1125,63 +1376,16 @@ __device__ void segment_body(const World& w, Seg& s) {
     const float ncd = cn ? cdist2 : (sphm ? s.aux_dist : s.cdist);
     float nfog = (cont2 || m_yhit || m_wall2) ? fog2
         : (m_sph2 ? s.fog + extra : s.fog);
-    if constexpr (V >= VAR_PAD64) {
-        // the calibration pads (tracer_core.py:1217-1290) over the step's
-        // values, live masks and cell-class masks
+    if constexpr (is_pad(V) || V == VAR_FLAGS) {
+        // the calibration pads over the step's values, live masks and
+        // cell-class masks
         const float vs[8] = {s.px, s.py, s.pz, s.rx, s.ry, s.rz, wx, wz};
         const bool ms[8] = {xstep, zstep, term, pgo2, cont2, my2, ymin,
                             xmin};
         const bool wallT = term && !sphm;
         const bool ns[8] = {is_wall, is_tall, is_ramp, is_portal, ft, near,
                             sphm, wallT};
-        if constexpr (V == VAR_PAD64) {         // 8 x 8 mul+add chains
-            float acc = 0.0f;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                float u = vs[j];
-#pragma unroll
-                for (int k = 0; k < 8; ++k) u = u * s.rx + p2z;
-                acc = j == 0 ? u : acc + u;
-            }
-            nfog = opq ? nfog : acc;
-        } else if constexpr (V == VAR_PAD64D) { // one 64-step chain
-            float u = vs[0];
-#pragma unroll
-            for (int k = 0; k < 64; ++k) u = u * s.rx + p2z;
-            nfog = opq ? nfog : u;
-        } else if constexpr (V == VAR_SEL64 || V == VAR_CMP64) {
-            float acc = 0.0f;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                float u = vs[j];
-#pragma unroll
-                for (int k = 0; k < 8; ++k) {
-                    if constexpr (V == VAR_SEL64) { // 8-deep select chains
-                        // every link's alternate opaque to the compiler:
-                        // with one repeated operand, a chain folds into
-                        // an and-reduction and one select
-                        float alt = vs[(j + 1) % 8];
-                        asm volatile("" : "+f"(alt));
-                        u = ms[k] ? u : alt;
-                    } else                          // compare + select
-                        u = u < vs[(j + k + 1) % 8] ? u : vs[(j + k) % 8];
-                }
-                acc = j == 0 ? u : acc + u;
-            }
-            nfog = opq ? nfog : acc;
-        } else {    // bool128 on predicates, int128 on {0, 1} words
-            using M = std::conditional_t<V == VAR_INT128, int, bool>;
-            M acc = 0;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const M m = ms[j];
-                M u = m;
-#pragma unroll
-                for (int k = 0; k < 8; ++k) u = u ^ (m & (M)ns[k]);
-                acc = j == 0 ? u : (M)(acc | u);
-            }
-            s.tmeta = opq ? s.tmeta : (acc ? 1 : 2);
-        }
+        apply_pad<V>(w, vs, s.rx, p2z, ms, ns, opq, nfog, s.tmeta);
     }
     const int nld = cont2 ? ldir3 : pgo2 ? j.ldir
         : m_ryhit ? (ray_y2 < 0.0f ? FYN : FYP)
@@ -1231,7 +1435,7 @@ __device__ void segment_body(const World& w, Seg& s) {
 template <bool P, int V, bool T>
 __device__ __forceinline__ void dda_step(const World& w, Seg& s) {
     if constexpr (P)
-        parity_step<T>(w, s);
+        parity_step<V, T>(w, s);
     else
         segment_body<V, T>(w, s);
 }
@@ -1252,8 +1456,8 @@ __device__ __forceinline__ float randfs(uint32_t& seed, float inv_mod) {
 // shade_and_bounce) up to the reflect jitter, the only part that draws
 // random numbers.  icol: the parent's base colour; on return (fx, fy, fz)
 // hold the bounce ray's origin and (mrx, mry, mrz) its direction before
-// the jitter.  VAR_NOWATER: the flat floor normal (0, 1, 0), not
-// normalised (tracer_core.py:1719-1722).
+// the jitter.  VAR_NOWATER (and VAR_FLAGS with FLAG_NOWATER): the flat
+// floor normal (0, 1, 0), not normalised (tracer_core.py:1719-1722).
 template <bool P, int V = VAR_NONE>
 __device__ __forceinline__ Shade shade_hit(const World& w, const Seg& s,
                                            const float icol[4], float sec,
@@ -1328,7 +1532,7 @@ __device__ __forceinline__ Shade shade_hit(const World& w, const Seg& s,
     }
     // water floor: normal from the nudged position
     const bool is_water = is_wall && ld == FYN;
-    if (V == VAR_NOWATER && is_water) {
+    if (nowater<V>(w) && is_water) {
         nx = 0.0f;
         ny = 1.0f;
         nz = 0.0f;
@@ -1423,6 +1627,9 @@ struct Params {
     int width, rows, tiles_x, n_tiles;
     int* queue;               // [2] next tile, blocks done (0 after)
     int* query;               // set: report the launch here, do not launch
+    float* out_col;           // set: the colour unpacked, f32 [4, n] (B, G,
+                              // R, A planes), in place of out_fb
+    int flags;                // VAR_FLAGS: its knobs (FLAG_*, a probe)
 };
 
 // Weyl increment between the seed streams of two samples
@@ -1505,7 +1712,7 @@ __device__ __forceinline__ void start(const World& w, const Params& a,
 }
 
 // March one segment until it terminates or the step budget runs out
-// (tracer_core.run_segment).  VAR_PROFILE returns the terminal step count
+// (tracer_core.run_segment).  profiles(V) returns the terminal step count
 // (tracer_core.py:1436-1456): step + 1 on the step the ray died, maxsteps
 // if the budget ran out; the other instances return 0.  LAZY: start's.
 template <bool P, int V, bool T, bool LAZY = false>
@@ -1521,13 +1728,13 @@ __device__ __forceinline__ int march(const World& w, const Params& a,
         const long long t0 = phase_clock<V>();
         dda_step<P, V, T>(w, s);
         phase_lead<V>(steps_cycles, t0);
-        if constexpr (V == VAR_PROFILE) {
+        if constexpr (profiles(V)) {
             if (!s.active) tstep = step + 1;
         }
     }
     if (s.active) {
         s.tmeta = T_SKY;
-        if constexpr (V == VAR_PROFILE) tstep = a.maxsteps;
+        if constexpr (profiles(V)) tstep = a.maxsteps;
     }
     phase_sum<V>(w, PH_STEPS, steps_cycles);
     phase_add<V>(w, PH_MARCH, t_march);
@@ -1580,7 +1787,7 @@ __device__ __forceinline__ void unwind(const float* rec, int last,
 // Wave k's shaded colour, reflectance and fog go to rec[(k * REC + c) *
 // B], the thread's column of the block's unwind records in shared memory
 // (B: the block's threads), where no run-time index sends them to local
-// memory.  VAR_PROFILE: ts[k] gets wave k's terminal step count (k >= 1).
+// memory.  profiles(V): ts[k] gets wave k's terminal step count (k >= 1).
 template <bool P, int V, bool T, int B>
 __device__ __forceinline__ void chain(const World& w, const Params& a,
                                       const Seg& s0, uint32_t seed,
@@ -1595,7 +1802,7 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
         if (k > 0) {
             const int t = march<P, V, T>(w, a, s, fx, fy, fz, rx, ry, rz,
                                          s.page);
-            if constexpr (V == VAR_PROFILE) ts[k] = t;
+            if constexpr (profiles(V)) ts[k] = t;
         }
         const long long t0 = phase_clock<V>();
         const Shade o = shade<P, V>(w, s, icol, seed, a.sec, k < a.reflect,
@@ -1616,8 +1823,8 @@ __device__ __forceinline__ void chain(const World& w, const Params& a,
 // reflectance and fog) and in registers (bounce, whether it bounces; its
 // bounce origin px, py, pz, mirrored ray mx, my, mz and end page): the
 // jitter with this chain's seed, then waves 1..reflect and the unwind as
-// chain() runs them.  B: as chain's.
-template <bool P, bool T, int B>
+// chain() runs them.  B: as chain's; V: the measurement instance.
+template <bool P, int V, bool T, int B>
 __device__ __forceinline__ void chain_from(const World& w, const Params& a,
                                            bool bounce, float px, float py,
                                            float pz, float mx, float my,
@@ -1631,10 +1838,10 @@ __device__ __forceinline__ void chain_from(const World& w, const Params& a,
         jitter(seed, a.inv_mod, mx, my, mz, rx, ry, rz);
         Seg s;
         for (int k = 1; k <= a.reflect; ++k) {
-            march<P, VAR_NONE, T, true>(w, a, s, fx, fy, fz, rx, ry, rz,
-                                        page);
-            const Shade o = shade<P>(w, s, icol, seed, a.sec, k < a.reflect,
-                                     a.inv_mod, fx, fy, fz, rx, ry, rz);
+            march<P, V, T, true>(w, a, s, fx, fy, fz, rx, ry, rz, page);
+            const Shade o = shade<P, V>(w, s, icol, seed, a.sec,
+                                        k < a.reflect, a.inv_mod, fx, fy,
+                                        fz, rx, ry, rz);
             record<B>(rec, k, o, icol);
             last = k;
             page = s.page;
@@ -1659,12 +1866,13 @@ struct Fused {
 };
 
 // Shade the segment that s finished; finalize the colour or compose this
-// wave's blend into the affine and restart s on the bounce ray
-template <bool T>
+// wave's blend into the affine and restart s on the bounce ray; V: the
+// measurement instance
+template <int V, bool T>
 __device__ __forceinline__ void fused_death(const World& w, const Params& a,
                                             Seg& s, Fused& f) {
     float fx, fy, fz, rx, ry, rz;
-    const Shade o = shade<false>(w, s, f.icol, f.seed, a.sec,
+    const Shade o = shade<false, V>(w, s, f.icol, f.seed, a.sec,
                                  f.wave < a.reflect, a.inv_mod, fx, fy, fz,
                                  rx, ry, rz);
     if (f.wave == 0) f.dist0 = s.cdist;
@@ -1703,8 +1911,8 @@ __device__ __forceinline__ void fused_death(const World& w, const Params& a,
 // same bits, with the cap maxsteps * n_waves + 8 * n_waves rounded up to
 // step_chunk held per lane.  A segment the cap cuts is never shaded; one
 // that ends on the last iteration is shaded (the drain) and its restart
-// never steps.
-template <bool T>
+// never steps.  V: the measurement instance.
+template <int V, bool T>
 __device__ __forceinline__ void fused(const World& w, const Params& a,
                                       float fx, float fy, float fz,
                                       float rx, float ry, float rz,
@@ -1717,7 +1925,7 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
     const int n_it = (cap + chunk - 1) / chunk * chunk;
     while (true) {
         for (int segsteps = 0; s.active && f.it < n_it;) {
-            segment_body<VAR_NONE, T>(w, s);
+            segment_body<V, T>(w, s);
             ++f.it;
             // the per-segment step budget -> sky (trace.h:247,678)
             if (s.active && ++segsteps >= a.maxsteps) {
@@ -1726,7 +1934,7 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
             }
         }
         if (s.active) break;            // cut by the cap: not shaded
-        fused_death<T>(w, a, s, f);
+        fused_death<V, T>(w, a, s, f);
         if (f.done || f.it >= n_it) break;
     }
     for (int c = 0; c < 4; ++c) col[c] = f.done ? f.acc_a[c] : 0.0f;
@@ -1740,7 +1948,9 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
 // ((c0 + c1) + c2) + ..., and the sum is scaled by the host's f32(1 /
 // samples) before the pack (tracer_core.py:1804-1817).  S = false is the
 // one-chain trace.  F: the fused wave loop (P = S = false).  V: a
-// measurement instance (VAR_*; P = S = F = false).
+// measurement instance (VAR_*), whose per-wave step counts (profiles(V))
+// go to out_tstep in the one-chain trace where it is set.  The colour is
+// packed to out_fb, or with out_col set written there unpacked.
 template <bool P, bool S, bool F, int V, bool T>
 __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
                                           int i, float* rec) {
@@ -1750,8 +1960,8 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
     if constexpr (F) {
         Fused f;
         f.seed = seed;
-        fused<T>(w, a, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i],
-                 f, col);
+        fused<V, T>(w, a, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i],
+                    a.dz[i], f, col);
         dist0 = f.dist0;
     } else if constexpr (S) {
         Seg s;
@@ -1761,33 +1971,39 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
         a.out_dist[i] = s.cdist;
         const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
         float px, py, pz, mx, my, mz, icol[4];
-        const Shade o0 = shade_hit<P>(w, s, one, a.sec, 0 < a.reflect, px,
-                                      py, pz, mx, my, mz);
+        const Shade o0 = shade_hit<P, V>(w, s, one, a.sec, 0 < a.reflect,
+                                         px, py, pz, mx, my, mz);
         record<B>(rec, 0, o0, icol);
         for (int k = 0; k < a.samples; ++k) {
             float c[4];
-            chain_from<P, T, B>(w, a, o0.bounce, px, py, pz, mx, my, mz,
-                             s.page, seed + (uint32_t)k * WEYL, c, rec);
+            chain_from<P, V, T, B>(w, a, o0.bounce, px, py, pz, mx, my, mz,
+                                   s.page, seed + (uint32_t)k * WEYL, c,
+                                   rec);
             for (int j = 0; j < 4; ++j)
                 col[j] = k == 0 ? c[j] : col[j] + c[j];
         }
         for (int j = 0; j < 4; ++j) col[j] = col[j] * a.inv;
     } else {
         Seg s;
-        int ts[V == VAR_PROFILE ? MAX_WAVES : 1] = {};
+        int ts[profiles(V) ? MAX_WAVES : 1] = {};
         ts[0] = march<P, V, T>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
                                a.dy[i], a.dz[i], a.page0);
         dist0 = s.cdist;
         chain<P, V, T, B>(w, a, s, seed, col, rec, ts);
-        if constexpr (V == VAR_PROFILE) {
-            for (int k = 0; k <= a.reflect; ++k)
-                a.out_tstep[(size_t)k * a.n + i] = ts[k];
+        if constexpr (profiles(V)) {
+            if (a.out_tstep)
+                for (int k = 0; k <= a.reflect; ++k)
+                    a.out_tstep[(size_t)k * a.n + i] = ts[k];
         }
     }
     if constexpr (!S) a.out_dist[i] = dist0;
-    a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
-                            | pack_chan(col[2], 16)
-                            | pack_chan(col[3], 24));
+    if (a.out_col) {
+        for (int c = 0; c < 4; ++c) a.out_col[(size_t)c * a.n + i] = col[c];
+    } else {
+        a.out_fb[i] = (int32_t)(pack_chan(col[0], 0) | pack_chan(col[1], 8)
+                                | pack_chan(col[2], 16)
+                                | pack_chan(col[3], 24));
+    }
 }
 
 // The ray that `lane` of the warp holding `tile` traces, or -1 (a masked
@@ -1880,6 +2096,7 @@ trace_kernel(const Params a) {
         w.phases = reinterpret_cast<unsigned long long*>(a.out_tstep);
         phase_add<V>(w, PH_PROLOGUE, t_kernel);
     }
+    if constexpr (V == VAR_FLAGS) w.flags = a.flags;
     float* rec = reinterpret_cast<float*>(smem + off_rec<P, T>())
         + threadIdx.x;
     const int lane = threadIdx.x % WARP;
@@ -1996,19 +2213,20 @@ int launch_instance(const Params& a, void* stream) {
 
 // The entry points' one argument, which ops/tracer.py packs (_ARGS):
 // the pointers, then the 32-bit ints, then the floats, so that no field
-// is padded.  parity selects pwnfps_trace_parity's instances, variant the
-// measurement instance (VAR_*) of pwnfps_trace_variant; query set: report
-// the launch there and do not launch (launch_tiles).
+// is padded.  parity selects the parity instances, variant the
+// measurement instance (VAR_*) of the measurement entries and flags
+// VAR_FLAGS's knobs; out_col set: the colour unpacked (Params.out_col);
+// query set: report the launch there and do not launch (launch_tiles).
 struct Args {
     const void *ox, *oy, *oz, *dx, *dy, *dz, *seeds, *ent, *word, *sph,
         *bound, *buckets, *sse;
-    void *out_fb, *out_dist, *out_tstep, *queue, *query;
+    void *out_fb, *out_dist, *out_tstep, *queue, *query, *out_col;
     int32_t n, n_spheres, k_bucket, maxsteps, reflect, skip, n_pages,
         sphere_page, page0, samples, fused, step_chunk, width, parity,
-        variant, unused;
+        variant, flags;
     float sec, slack, inv_mod, inv;
 };
-static_assert(sizeof(Args) == 18 * 8 + 16 * 4 + 4 * 4,
+static_assert(sizeof(Args) == 19 * 8 + 16 * 4 + 4 * 4,
               "Args must match ops/tracer.py's _ARGS");
 
 __host__ inline Params params_of(const Args& g) {
@@ -2047,6 +2265,8 @@ __host__ inline Params params_of(const Args& g) {
     a.out_tstep = (int32_t*)g.out_tstep;
     a.queue = (int*)g.queue;
     a.query = (int*)g.query;
+    a.out_col = (float*)g.out_col;
+    a.flags = g.flags;
     set_tiles(a, g.width);
     return a;
 }

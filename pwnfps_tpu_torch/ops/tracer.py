@@ -11,17 +11,24 @@ scalar page `page0` (the TPU kernel's `page0_ref`, tracer_pallas.py:648).
 In either mode `cfg.samples > 1` traces the primary wave once and
 `samples` bounce chains from it, and writes their mean
 (tracer_core.trace_wave_env).  `cfg.fused` in fast mode runs the fused
-wave loop (tracer_core.run_fused), one sample; parity mode ignores it.
+wave loop (tracer_core.run_fused), one sample; parity mode and profile
+runs ignore it.  With pack=False every instance writes the colour
+unpacked, four f32 planes in place of the BGRA word.
 
-The measurement instances (`cfg.profile`, `cfg.water=False`, `cfg.probe`;
-fast mode, one sample, unfused, one page or paged) launch entry
-`pwnfps_trace_variant` of csrc/tracer_variants.cu, one instance of the
-same template each.  `trace_wave_profile` returns the profile instance's
-per-wave terminal step counts beside the frame, `trace_wave_phases` the
-phases instance's warp-cycles by region (parity mode, one sample).  Both entries take one
-argument, the launch's fields packed into csrc/tracer_body.cuh's `Args`
-(`_ARGS`), through the port's launch route (`_launch.Entry`); a world's
-table checks and addresses are kept after its first launch.
+The measurement knobs (`cfg.profile`, `cfg.water=False`, `cfg.probe`)
+run in every mode and combination the JAX package accepts (`instance`):
+one knob in fast mode with one sample, unfused, launches its instance
+of entry `pwnfps_trace_variant` (csrc/tracer_variants.cu), one knob in
+parity mode with one sample its instance of `pwnfps_trace_parity_variant`
+(csrc/tracer_parity_variants.cu), and every other combination (several
+knobs, samples > 1, the fused loop) the instance of its structure that
+reads the knobs at run time, `pwnfps_trace_flags` (csrc/tracer_flags.cu).
+`trace_wave_profile` returns the per-wave terminal step counts beside the
+frame, `trace_wave_phases` the phases instance's warp-cycles by region
+(parity mode, one sample).  Every entry takes one argument, the launch's
+fields packed into csrc/tracer_body.cuh's `Args` (`_ARGS`), through the
+port's launch route (`_launch.Entry`); a world's table checks and
+addresses are kept after its first launch.
 
 Each warp of every instance traces a tile of 32 rays: 8x4 pixels of
 the row-major image `cfg.width` wide that the rays are taken to be
@@ -46,9 +53,9 @@ from .._launch import Entry, stream as current_stream
 from ..core import lcg
 from ..core.approx import COMPACT_RCP, COMPACT_RSQ
 from ..core.config import RenderConfig
-from .tracer_core import (PROBES, check_config, col_ftoint,
+from .tracer_core import (PROBES, check_config, col_ftoint, takes_fused,
                           trace_wave_env, variant)
-from .vec import V3
+from .vec import C4, V3
 from .world import SPH_COLS, TorchWorld
 
 # launches of each kernel variant since import (reset by callers that
@@ -68,23 +75,46 @@ LAUNCHES_PARITY = 0
 LAUNCHES_PARITY_SAMPLES = 0
 LAUNCHES_PARITY_PAGED = 0
 # the measurement instances' template values in csrc/tracer_body.cuh
-# (VAR_*), and their launches, one counter a variant, either kind of world
+# (VAR_*), and their launches, one counter a variant, either kind of
+# world: LAUNCHES_VARIANT fast mode's (tracer_variants.cu),
+# LAUNCHES_PARITY_VARIANT parity mode's (tracer_parity_variants.cu)
 VARIANTS = {name: k for k, name in enumerate(("nowater", "profile")
                                              + PROBES, 1)}
 LAUNCHES_VARIANT = dict.fromkeys(VARIANTS, 0)
+LAUNCHES_PARITY_VARIANT = dict.fromkeys(VARIANTS, 0)
+# the instance of each structure that reads its knobs at run time
+# (VAR_FLAGS, tracer_flags.cu; Args.flags: a probe's VAR_* in the low 4
+# bits, FLAG_NOWATER), and its launches by structure, either kind of world
+VAR_FLAGS, FLAG_NOWATER = 12, 16
+STRUCTURES = ("fast", "samples", "fused", "parity", "parity_samples")
+LAUNCHES_FLAGS = dict.fromkeys(STRUCTURES, 0)
+# launches of the rendering instances with pack=False (the colour
+# unpacked), by instance, each in this counter only
+RENDERING = ("fast", "paged", "samples", "fused", "parity",
+             "parity_samples", "parity_paged")
+LAUNCHES_UNPACKED = dict.fromkeys(RENDERING, 0)
 # the phases instance (VAR_PHASES: parity mode, one sample): its regions
 # in the order of its counters (csrc/tracer_body.cuh PH_*), the rows of
 # counters it takes, and its launches
 PHASES = ("prologue", "tile", "march", "steps", "shade", "unwind", "kernel")
 VAR_PHASES, PHASE_ROWS = len(VARIANTS) + 1, 8192
 LAUNCHES_PHASES = 0
-# C entry points of csrc/tracer.cu and csrc/tracer_variants.cu, each
-# taking one packed argument: csrc/tracer_body.cuh's Args, 18 pointers,
-# 16 int32 and 4 float32 (struct packing rounds each float to f32)
-_ARGS = struct.Struct("=18Q16i4f")
+# C entry points of csrc/tracer.cu, tracer_variants.cu,
+# tracer_parity_variants.cu and tracer_flags.cu, each taking one packed
+# argument: csrc/tracer_body.cuh's Args, 19 pointers, 16 int32 and 4
+# float32 (struct packing rounds each float to f32)
+_ARGS = struct.Struct("=19Q16i4f")
 _TRACE = Entry("tracer", "pwnfps_trace", [ctypes.c_char_p])
 _TRACE_VARIANT = Entry("tracer_variants", "pwnfps_trace_variant",
                        [ctypes.c_char_p])
+_TRACE_PARITY_VARIANT = Entry("tracer_parity_variants",
+                              "pwnfps_trace_parity_variant",
+                              [ctypes.c_char_p])
+_TRACE_FLAGS = Entry("tracer_flags", "pwnfps_trace_flags",
+                     [ctypes.c_char_p])
+# the kernel libraries of the tracer's entries
+LIBRARIES = ("tracer", "tracer_variants", "tracer_parity_variants",
+             "tracer_flags")
 # a warp's tile: 8 x 4 pixels, one ray a lane (csrc/tracer_body.cuh)
 WARP, TILE_W, TILE_H = 32, 8, 4
 # the tile queue of each (device index, stream handle): the tensor and
@@ -123,17 +153,52 @@ def _queue(index: int, stream: int) -> int:
     return q[1]
 
 
+def instance(cfg: RenderConfig, n_pages: int) -> tuple[str, str]:
+    """(entry, counter) of the kernel instance cfg selects: entry one of
+    "tracer" (a rendering instance), "variant", "parity_variant" (one
+    knob, one sample, unfused; the counter is the knob) or "flags" (the
+    counter is the structure, STRUCTURES)."""
+    var = variant(cfg)
+    if not var:
+        if cfg.parity:
+            return "tracer", ("parity_paged" if n_pages > 1 else
+                              "parity_samples" if cfg.samples > 1 else
+                              "parity")
+        if takes_fused(cfg):
+            return "tracer", "fused"
+        return "tracer", ("samples" if cfg.samples > 1 else
+                          "paged" if n_pages > 1 else "fast")
+    if len(var) == 1 and cfg.samples == 1 and not takes_fused(cfg):
+        return ("parity_variant" if cfg.parity else "variant"), var[0]
+    if takes_fused(cfg):
+        return "flags", "fused"
+    structure = "samples" if cfg.samples > 1 else "fast"
+    if cfg.parity:
+        structure = "parity" if structure == "fast" else "parity_samples"
+    return "flags", structure
+
+
 def _pack(wt: TorchWorld, cfg: RenderConfig, n: int, rays, outs, queue,
-          sec, page0: int, width: int, var: str) -> bytes:
+          sec, page0: int, width: int, var: str, out_col: int = 0) -> bytes:
     """The kernel's Args for a launch: rays the 7 input addresses, outs
-    the (fb, dist, tstep) addresses (0: none), queue the tile queue's."""
-    fused = cfg.fused and not cfg.parity and not var
+    the (fb, dist, tstep) addresses (0: none), queue the tile queue's,
+    var "phases" or the entry of `instance`, out_col the address of the
+    unpacked colour (0: pack it)."""
+    code, flags = 0, 0
+    if var == "phases":
+        code = VAR_PHASES
+    elif var in ("variant", "parity_variant"):
+        code = VARIANTS[variant(cfg)[0]]
+    elif var == "flags":
+        code = VAR_FLAGS
+        flags = ((VARIANTS[cfg.probe] if cfg.probe else 0)
+                 | (0 if cfg.water else FLAG_NOWATER))
     return _ARGS.pack(
-        *rays, *_world_args(wt)[1], *outs, queue, 0,
+        *rays, *_world_args(wt)[1], *outs, queue, 0, out_col,
         n, wt.n_spheres, wt.k_bucket, cfg.maxsteps, cfg.reflect,
         cfg.space_skip and wt.skip_ok, wt.n_pages, wt.sphere_page, page0,
-        cfg.samples, fused, max(1, cfg.step_chunk), width, cfg.parity,
-        VAR_PHASES if var == "phases" else VARIANTS.get(var, 0), 0, sec, wt.slack, lcg.INV_MOD_F,
+        cfg.samples, takes_fused(cfg), max(1, cfg.step_chunk), width,
+        cfg.parity, code, flags, sec, wt.slack, lcg.INV_MOD_F,
         1.0 / cfg.samples)
 
 
@@ -145,7 +210,7 @@ def launch_shape(cfg: RenderConfig, n: int, width: int | None,
     query set)."""
     out = torch.zeros(4, dtype=torch.int32)
     fused = cfg.fused and not cfg.parity
-    args = _ARGS.pack(*[0] * 17, out.data_ptr(), n, 0, 0, 0, cfg.reflect,
+    args = _ARGS.pack(*[0] * 17, out.data_ptr(), 0, n, 0, 0, 0, cfg.reflect,
                       0, n_pages, 0, 0, cfg.samples, fused, 1, width or 0,
                       cfg.parity, 0, 0, 0.0, 0.0, 0.0, 0.0)
     index = torch.device(device).index or 0
@@ -217,13 +282,18 @@ def _check_inputs(wt: TorchWorld, ifrom: V3, iray: V3, seed, page0: int):
                          "devices")
 
 
+_ENTRIES = {"tracer": _TRACE, "variant": _TRACE_VARIANT,
+            "parity_variant": _TRACE_PARITY_VARIANT, "flags": _TRACE_FLAGS}
+
+
 def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
             seed: torch.Tensor, sec, page0: int, width: int | None = None,
-            var: str | None = None):
-    """Launch the instance cfg selects, or measurement instance var;
-    width: as trace_wave's.  Returns (fb, dist, tstep): tstep int32
-    [n_waves, n] from the profile instance, int64 [PHASE_ROWS,
-    len(PHASES)] from the phases instance, else None."""
+            phases: bool = False, pack: bool = True):
+    """Launch the instance cfg selects (`instance`), or with phases the
+    phases instance; width: as trace_wave's.  Returns (fb, dist, tstep):
+    fb int32 [n] BGRA bits, or with pack=False the C4 of f32 [n]; tstep
+    int32 [n_waves, n] where cfg.profile records one, int64
+    [PHASE_ROWS, len(PHASES)] from the phases instance, else None."""
     global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
         LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED, \
         LAUNCHES_PHASES
@@ -231,44 +301,52 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     index = seed.get_device()
     # the contiguous copies must outlive the launch: keep them here
     keep = [t.contiguous() for t in (*ifrom, *iray, seed)]
-    fb = torch.empty_like(keep[6])
     dist = torch.empty_like(keep[0])
-    var = variant(cfg) if var is None else var
-    tstep = (torch.empty((cfg.n_waves, n), dtype=torch.int32,
-                         device=seed.device) if var == "profile"
-             else torch.zeros((PHASE_ROWS, len(PHASES)), dtype=torch.int64,
-                              device=seed.device) if var == "phases"
-             else None)
+    entry, key = ("phases", "") if phases else instance(cfg, wt.n_pages)
+    fb = torch.empty_like(keep[6]) if pack else None
+    col = None if pack else torch.empty((4, n), dtype=torch.float32,
+                                        device=seed.device)
+    tstep = (torch.zeros((PHASE_ROWS, len(PHASES)), dtype=torch.int64,
+                         device=seed.device) if phases
+             else torch.empty((cfg.n_waves, n), dtype=torch.int32,
+                              device=seed.device)
+             if "profile" in variant(cfg) else None)
     stream = current_stream(index)
     args = _pack(wt, cfg, n, [t.data_ptr() for t in keep],
-                 (fb.data_ptr(), dist.data_ptr(),
+                 (fb.data_ptr() if pack else 0, dist.data_ptr(),
                   tstep.data_ptr() if tstep is not None else 0),
                  _queue(index, stream), sec, page0,
-                 cfg.width if width is None else width, var)
-    if var == "phases":
+                 cfg.width if width is None else width, entry,
+                 0 if pack else col.data_ptr())
+    out = fb if pack else C4(*col)
+    if phases:
         _TRACE_VARIANT.on(index, stream, args)
         LAUNCHES_PHASES += 1
-        return fb, dist, tstep
-    if var:
-        _TRACE_VARIANT.on(index, stream, args)
-        LAUNCHES_VARIANT[var] += 1
-        return fb, dist, tstep
-    _TRACE.on(index, stream, args)
-    if cfg.parity and wt.n_pages > 1:
+        return out, dist, tstep
+    _ENTRIES[entry].on(index, stream, args)
+    if entry == "variant":
+        LAUNCHES_VARIANT[key] += 1
+    elif entry == "parity_variant":
+        LAUNCHES_PARITY_VARIANT[key] += 1
+    elif entry == "flags":
+        LAUNCHES_FLAGS[key] += 1
+    elif not pack:
+        LAUNCHES_UNPACKED[key] += 1
+    elif key == "parity_paged":
         LAUNCHES_PARITY_PAGED += 1
-    elif cfg.parity and cfg.samples > 1:
+    elif key == "parity_samples":
         LAUNCHES_PARITY_SAMPLES += 1
-    elif cfg.parity:
+    elif key == "parity":
         LAUNCHES_PARITY += 1
-    elif cfg.fused:
+    elif key == "fused":
         LAUNCHES_FUSED += 1
-    elif cfg.samples > 1:
+    elif key == "samples":
         LAUNCHES_SAMPLES += 1
-    elif wt.n_pages > 1:
+    elif key == "paged":
         LAUNCHES_PAGED += 1
     else:
         LAUNCHES += 1
-    return fb, dist, tstep
+    return out, dist, tstep
 
 
 def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
@@ -276,8 +354,8 @@ def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                width: int | None = None):
     """Full multi-bounce trace of n rays, each starting on page `page0`,
     averaged over cfg.samples bounce chains.  Returns (C4 of [n], dist
-    [n]), or (fb int32 [n] BGRA bits, dist [n]) with pack=True.  The
-    kernel writes packed BGRA only, so CUDA tensors need pack=True.
+    [n]), or (fb int32 [n] BGRA bits, dist [n]) with pack=True; on CUDA
+    tensors the kernel packs the colour, or writes it unpacked.
     width: the rays are a row-major image (or stacked images) this wide,
     which the kernel's warps take in 8x4-pixel tiles, by default
     cfg.width; 0 for rays that are no image (32 consecutive rays a
@@ -292,10 +370,8 @@ def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                                 page0=page0)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not pack:
-        raise NotImplementedError("the trace kernel writes packed BGRA "
-                                  "only: pass pack=True")
-    return _launch(wt, cfg, ifrom, iray, seed, sec, page0, width)[:2]
+    return _launch(wt, cfg, ifrom, iray, seed, sec, page0, width,
+                   pack=pack)[:2]
 
 
 def trace_wave_profile(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
@@ -303,10 +379,17 @@ def trace_wave_profile(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     """trace_wave with cfg.profile set: (fb int32 [n] BGRA bits, dist
     [n], tstep int32 [n_waves, n]), each wave's terminal DDA step count
     a ray (tracer_core.run_segment; 0 for a wave the ray's chain never
-    reached).  The kernel-granular counterpart of reading SegOut.tstep
-    per wave in the JAX package (tools/occupancy.py)."""
+    reached), in either mode with one sample and with the other knobs
+    cfg sets.  The kernel-granular counterpart of reading SegOut.tstep
+    per wave in the JAX package (tools/occupancy.py).  With samples > 1
+    the JAX package has no per-wave tstep (each sample's chain has its
+    own waves), so that raises ValueError."""
     cfg = dataclasses.replace(cfg, profile=True)
     check_config(cfg)
+    if cfg.samples != 1:
+        raise ValueError(f"samples={cfg.samples}: a per-wave tstep exists "
+                         "for one sample only (the JAX package records "
+                         "none for its sample chains)")
     _check_inputs(wt, ifrom, iray, seed, page0)
     dev = ifrom.x.device
     if dev.type == "cpu":
@@ -337,5 +420,5 @@ def trace_wave_phases(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
         raise ValueError(f"unsupported device {ifrom.x.device}: the "
                          "phases instance runs on the card")
     fb, dist, cycles = _launch(wt, cfg, ifrom, iray, seed, sec, page0,
-                               width, var="phases")
+                               width, phases=True)
     return fb, dist, cycles.sum(0)

@@ -18,13 +18,14 @@ scan reads the lane's page of the bucket table.
 `run_fused` is the fused wave loop (`cfg.fused`, fast mode): one DDA
 loop in which each lane shades and restarts its own bounces.
 
-The measurement instances of the JAX module, fast mode with one sample,
-one at a time (`check_config`): `cfg.profile` records each lane's
-terminal step (`SegState.tstep`, per wave in the SegOuts of
-`trace_wave_env`'s `segs`); `cfg.water=False` shades the water floor
-with a flat normal; `cfg.probe` adds one of the calibration pads of
-`PROBES`, whose results a data-opaque select throws away, so the bits
-stay those of probe="".
+The measurement knobs of the JAX module, in every mode and combination
+it accepts (`check_config`): `cfg.profile` records each lane's terminal
+step (`SegState.tstep`, per wave in the SegOuts of `trace_wave_env`'s
+`segs`; the fused loop then takes the per-wave structure, as the JAX
+module does); `cfg.water=False` shades the water floor with a flat
+normal; `cfg.probe` adds one of the calibration pads of `PROBES`, whose
+results a data-opaque select throws away, so the bits stay those of
+probe="".
 
 Two modes, as in the JAX package, selected by `cfg.parity`:
 
@@ -978,7 +979,8 @@ def _process_deaths(wt: TorchWorld, cfg: RenderConfig, math: Math,
     col = acc_a + acc_b * child."""
     out = seg_out_view(wt, s, math)
     base, refl, bounce, mpos, mray, seed2 = shade_and_bounce(
-        out, acc.icol, acc.seed, sec, acc.wave < cfg.reflect, math)
+        out, acc.icol, acc.seed, sec, acc.wave < cfg.reflect, math,
+        cfg.water)
     fin = ~bounce
     col = (acc.acc_a + base * acc.acc_b).where(fin, acc.col)
     dist0 = torch.where(acc.wave == 0, s.cdist, acc.dist0)
@@ -1099,7 +1101,7 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
         was = s.active
         if counts is not None:
             counts["steps"] += int(was.sum())
-        s = segment_body(wt, s, use_skip, hoisted, math)
+        s = segment_body(wt, s, use_skip, hoisted, math, probe=cfg.probe)
         segsteps = torch.where(was, acc.segsteps + 1, acc.segsteps)
         # the per-segment step budget -> sky (trace.h:247,678)
         over = s.active & (segsteps >= cfg.maxsteps)
@@ -1114,42 +1116,34 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     return col_out, dist_out
 
 
-def variant(cfg: RenderConfig) -> str:
-    """The measurement instance cfg asks for: "profile", "nowater", a
-    probe's name, or "" for none."""
-    names = [name for name, on in (("profile", cfg.profile),
-                                   ("nowater", not cfg.water),
-                                   (cfg.probe, bool(cfg.probe))) if on]
-    if len(names) > 1:
-        raise NotImplementedError(
-            f"one measurement instance at a time, not {' + '.join(names)}")
-    return names[0] if names else ""
+def variant(cfg: RenderConfig) -> tuple:
+    """The measurement knobs cfg sets, in this order: "profile",
+    "nowater" and a probe's name; () for none.  Profile with samples > 1
+    records no output (the JAX package has no per-wave tstep there) and
+    leaves the bits unchanged, so it is not counted."""
+    return tuple(name for name, on in (
+        ("profile", cfg.profile and cfg.samples == 1),
+        ("nowater", not cfg.water), (cfg.probe, bool(cfg.probe))) if on)
+
+
+def takes_fused(cfg: RenderConfig) -> bool:
+    """Whether cfg runs the fused wave loop: fast mode without profile,
+    as trace_wave_env decides (tracer_core.py:1763)."""
+    return cfg.fused and not cfg.parity and not cfg.profile
 
 
 def check_config(cfg: RenderConfig) -> None:
-    """Raise on every RenderConfig feature the port does not run, and
-    (ValueError) on the fused loop with samples > 1, which the JAX
-    package asserts against, and on an unknown probe.  Parity mode
-    ignores `fused`, as the JAX package does.  The measurement instances
-    (profile, water=False, a probe) run in fast mode with one sample, one
-    at a time; profile with `fused` takes the per-wave structure, as the
-    JAX package does (tracer_core.py:1763).
+    """Raise ValueError where the JAX package refuses: the fused wave
+    loop with samples > 1 (an assert in trace_wave_env) and an unknown
+    probe.  Parity mode and profile runs ignore `fused`, as the JAX
+    package does (tracer_core.py:1763).  The measurement knobs
+    (profile, water=False, a probe) run in every mode and combination.
     The Mosaic layout knobs (step_chunk, pack_carry, trace_2d,
     tile_rect, span_fetch, mesh_bands) leave the bits unchanged and are
     ignored; step_chunk also sets when the fused loop checks its cap."""
     if cfg.probe and cfg.probe not in PROBES:
         raise ValueError(f"unknown probe {cfg.probe!r}: one of {PROBES}")
-    var = variant(cfg)
-    if var:
-        if cfg.parity:
-            raise NotImplementedError(f"{var} in parity mode: not ported")
-        if cfg.samples != 1:
-            raise NotImplementedError(
-                f"{var} with samples={cfg.samples}: not ported")
-        if cfg.fused and var != "profile":
-            raise NotImplementedError(
-                f"{var} with the fused wave loop: not ported")
-    if cfg.fused and not cfg.parity and cfg.samples != 1:
+    if takes_fused(cfg) and cfg.samples != 1:
         raise ValueError(f"the fused wave loop traces one sample, not "
                          f"samples={cfg.samples}")
 
@@ -1178,7 +1172,7 @@ def trace_wave_env(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
     check_config(cfg)
     math = make_math(wt, cfg.parity)
     sec = float(np.float32(sec))
-    if cfg.fused and not cfg.parity and not cfg.profile:
+    if takes_fused(cfg):
         return run_fused(wt, cfg, math, ifrom, iray, seed, sec, page,
                          counts)
     one = torch.ones_like(ifrom.x)

@@ -11,8 +11,9 @@ their plain versions.
 
 With a `Mesh` of more than one device, the same batch is sharded as
 the JAX package shards it: cameras over the "cam" axis, each camera's
-rows over "px" (`render_cameras(..., mesh)`), and `render_frame_sharded`
-splits one camera's frame over every device of the mesh.  Where the
+rows over "px" (`render_cameras(..., mesh)`), `render_frame_sharded`
+splits one camera's frame over every device of the mesh, and
+`shard_trace` traces a flat ray batch over every mesh position.  Where the
 frame is tall enough (`_band_rows`) each device traces contiguous row
 bands of its own, one trace launch each, and blurs them after a halo
 exchange with its neighbours (`_dof_blur_mesh`, the band kernel); a
@@ -367,22 +368,43 @@ def _trace_band(tw: TorchWorld, cfg: RenderConfig, fv: V3, rv: V3, seeds,
     return fb.reshape(hw), zb.reshape(hw)
 
 
-def _trace_split(tws: dict, cfg: RenderConfig, mesh: Mesh, cols: list,
-                 sec):
-    """The flat paths' trace: the padded flat batch `cols` (origin x, y,
-    z, ray x, y, z, seeds) split into one contiguous slice a mesh
-    position, traced there in one launch.  Returns (fb, zbuf) flat,
-    gathered on mesh.flat[0]."""
-    dev0 = mesh.flat[0]
-    m = cols[0].shape[0] // mesh.size
+def shard_trace(world, meta: WorldMeta, cfg: RenderConfig, mesh: Mesh,
+                ifrom: V3, rays: V3, seeds: torch.Tensor, sec):
+    """The flat ray batch traced over every mesh position
+    (sharding.py:63-79): ifrom, rays (V3 of f32 [N]) and seeds (int32
+    [N]) with N % mesh.size == 0 (pad with dead rays first), on any one
+    device.  Mesh position k traces rays [k * N / mesh.size, (k + 1) * N
+    / mesh.size) on its own device in one launch, with the BGRA pack,
+    each ray starting on cfg.cam_page.  Returns (fb parts, zbuf parts):
+    part k, int32 BGRA bits and f32, on mesh.flat[k]; their torch.cat is
+    the JAX function's global array.  world: as replicate_world's."""
+    n = ifrom.x.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} rays do not split over {mesh.size} mesh "
+                         "positions: pad the batch first")
+    tws = replicate_world(world, meta, mesh)
+    m = n // mesh.size
     fbs, zbs = [], []
     for k, dev in enumerate(mesh.flat):
-        a = [col[k * m:(k + 1) * m].to(dev) for col in cols]
+        a = [t[k * m:(k + 1) * m].to(dev)
+             for t in (*ifrom, *rays, seeds)]
         fb, zb = _trace_band(tws[dev], cfg, V3(*a[:3]), V3(*a[3:6]), a[6],
                              sec, (m,))
-        fbs.append(fb.to(dev0))
-        zbs.append(zb.to(dev0))
-    return torch.cat(fbs), torch.cat(zbs)
+        fbs.append(fb)
+        zbs.append(zb)
+    return fbs, zbs
+
+
+def _trace_split(tws: dict, cfg: RenderConfig, mesh: Mesh, cols: list,
+                 sec):
+    """The flat paths' trace: shard_trace of the padded flat batch `cols`
+    (origin x, y, z, ray x, y, z, seeds), gathered flat on
+    mesh.flat[0]."""
+    dev0 = mesh.flat[0]
+    fbs, zbs = shard_trace(tws, None, cfg, mesh, V3(*cols[:3]),
+                           V3(*cols[3:6]), cols[6], sec)
+    return (torch.cat([f.to(dev0) for f in fbs]),
+            torch.cat([z.to(dev0) for z in zbs]))
 
 
 def _render_frame_mesh_banded(tws: dict, cfg: RenderConfig, mesh: Mesh,

@@ -65,6 +65,15 @@ A synthetic world, for holding the parity step's every branch:
     portals, in fog and in the 2-high room) and seeded random rays
     through it, not a camera's.
 
+The generated cave level (world/procgen.py generate_maze, the JAX
+package's cellular-automata level, tests/test_procgen.py):
+
+  * `cave_scene`: `generate_maze(seed)` with its 2-high halls, fog,
+    ramps and portal pairs, no spheres, fast mode (or parity mode) at
+    1920x1080 by default with one DoF pass, the camera at the level's
+    spawn point, yawing 0.07 rad and the clock advancing 0.016 s per
+    frame, as the flagship's.
+
 `mesh_for` gives the device mesh the multi-device path
 (parallel/sharding.py) renders these scenes on: by default one card
 repeated, a virtual mesh.
@@ -90,7 +99,8 @@ from .render.camera import camera_vectors, mat4_identity, mat4_roty
 from .ops.vec import V3
 from .world.levelc import compile_level, load_level
 from .world.objects import ObjectPool
-from .world.procgen import generate_sector_maze, make_portal_chain
+from .world.procgen import (generate_maze, generate_sector_maze,
+                            make_portal_chain)
 
 LEVEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "levels", "demo.txt")
@@ -241,6 +251,23 @@ def multicam_scene(device="cuda", n_cams: int = 64, **cfg_kw) -> Scene:
         cams.append(c)
     sc.cams = np.stack(cams).astype(np.float32)
     return sc
+
+
+def cave_scene(seed: int = 11, width: int = 1920, height: int = 1080,
+               device="cuda", parity: bool = False, **cfg_kw) -> Scene:
+    """generate_maze(seed) (its cave smoothing on `device`), no spheres,
+    at width x height on `device` from its spawn point, in fast mode or,
+    with parity=True, parity mode; cfg_kw override RenderConfig fields."""
+    lv = generate_maze(seed, device=device)
+    world, meta = W.build_world(lv, ObjectPool().prepare_render(),
+                                SseTables.load())
+    cfg = RenderConfig(width=width, height=height, parity=parity, **cfg_kw)
+    cam = mat4_identity()
+    sx, sz = lv.spawn
+    cam[3, :3] = (sx + 0.5, 0.5, sz + 0.5)
+    return Scene(world=world, meta=meta,
+                 tworld=world_to_torch(world, meta, device), cfg=cfg,
+                 cam=cam, yaw_step=0.07, sec_step=0.016)
 
 
 def stress_scene(width: int = 1280, height: int = 720, device="cuda",

@@ -2,7 +2,13 @@
 through csrc/tracer_body.cuh's trace_ray, one after another, and hold
 fb and zbuf bit for bit against the plain parity tracer.
 
-    python -m pwnfps_tpu_torch.tools.host_trace [CASE ...]
+    python -m pwnfps_tpu_torch.tools.host_trace [CASE ...] [--knobs K ...]
+
+--knobs runs each case under each set of RenderConfig measurement knobs
+of KNOBS (default: none) through the parity instance the card would
+launch (ops/tracer.instance): the one-knob instances and VAR_FLAGS, whose
+tstep (profile) is held against the plain tracer's too; "unpacked"
+writes the colour unpacked, held bit for bit against the plain C4.
 
 g++ builds csrc/host/host_trace.cpp, which includes the kernel body
 against csrc/host/cuda_runtime.h in place of the CUDA runtime (there
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import hashlib
 import os
 import subprocess
@@ -51,6 +58,16 @@ CASES = {
     "chain_96x54": ("stress_scene", (96, 54, {"parity": True}, 0)),
     "sph64_64x36": ("spheres_scene", (64, 36, {"parity": True}, 0)),
 }
+
+
+# measurement knobs: RenderConfig fields ("unpacked": none, the colour
+# written unpacked)
+KNOBS = {"none": {}, "unpacked": {}, "nowater": {"water": False},
+         "profile": {"profile": True},
+         **{p: {"probe": p} for p in tracer.PROBES},
+         "profile_nowater_pad64": {"profile": True, "water": False,
+                                   "probe": "pad64"},
+         "nowater_fire1": {"water": False, "probe": "fire1"}}
 
 
 def build() -> str:
@@ -96,20 +113,40 @@ def inputs(name: str):
     return sc.tworld, sc.cfg, ifrom, rays, seeds, sec, sc.cfg.cam_page
 
 
-def run(lib, name: str) -> tuple[float, float]:
-    """(share of equal fb words, share of equal zbuf words) of a case."""
+def run(lib, name: str, knobs: str = "none") -> tuple[float, float]:
+    """(share of equal fb words, or of equal colour words with knobs
+    "unpacked", share of equal zbuf words) of a case; a profile trace's
+    tstep must equal the plain tracer's (ValueError)."""
     wt, cfg, ifrom, rays, seeds, sec, page0 = inputs(name)
-    fb_p, z_p = tracer.trace_wave_plain(wt, cfg, ifrom, rays, seeds, sec,
-                                        True, page0=page0)
+    cfg = dataclasses.replace(cfg, **KNOBS[knobs])
+    unpacked = knobs == "unpacked"
+    segs = [] if cfg.profile and cfg.samples == 1 else None
+    out_p, z_p = tracer.trace_wave_plain(wt, cfg, ifrom, rays, seeds, sec,
+                                         not unpacked, page0=page0,
+                                         segs=segs)
     keep = [t.contiguous() for t in (*ifrom, *rays, seeds)]
+    n = keep[6].numel()
     fb = torch.empty_like(keep[6])
     z = torch.empty_like(keep[0])
-    args = tracer._pack(wt, cfg, fb.numel(), [t.data_ptr() for t in keep],
-                        (fb.data_ptr(), z.data_ptr(), 0), 0, sec, page0, 0,
-                        "")
+    col = torch.empty((4, n), dtype=torch.float32)
+    tstep = torch.empty((cfg.n_waves, n), dtype=torch.int32)
+    entry, _ = tracer.instance(cfg, wt.n_pages)
+    args = tracer._pack(wt, cfg, n, [t.data_ptr() for t in keep],
+                        (fb.data_ptr(), z.data_ptr(),
+                         tstep.data_ptr() if segs is not None else 0), 0,
+                        sec, page0, 0, entry,
+                        col.data_ptr() if unpacked else 0)
     if lib.pwnfps_host_trace(args) != 0:
         raise ValueError(f"{name}: the host build refused the Args")
-    return (float((fb == fb_p).double().mean()),
+    if segs is not None and not torch.equal(
+            tstep, torch.stack([o.tstep for o in segs])):
+        raise ValueError(f"{name} ({knobs}): tstep != the plain tracer's")
+    if unpacked:
+        same = (col.view(torch.int32)
+                == torch.stack(list(out_p)).view(torch.int32)).all(0)
+    else:
+        same = fb == out_p
+    return (float(same.double().mean()),
             float((z.view(torch.int32) == z_p.view(torch.int32))
                   .double().mean()))
 
@@ -118,6 +155,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("cases", nargs="*", metavar="CASE",
                    help=f"one of {', '.join(CASES)} (default: all)")
+    p.add_argument("--knobs", nargs="+", default=["none"],
+                   choices=list(KNOBS), metavar="K",
+                   help=f"one of {', '.join(KNOBS)} (default: none)")
     args = p.parse_args(argv)
     unknown = set(args.cases) - set(CASES)
     if unknown:
@@ -126,11 +166,12 @@ def main(argv=None) -> int:
     lib.pwnfps_host_trace.argtypes = [ctypes.c_char_p]
     ok = True
     for name in args.cases or list(CASES):
-        t0 = time.time()
-        f, z = run(lib, name)
-        ok = ok and f == z == 1.0
-        print(f"{name}: fb equal {f:.6f}, zbuf equal {z:.6f} "
-              f"({time.time() - t0:.1f} s)", flush=True)
+        for knobs in args.knobs:
+            t0 = time.time()
+            f, z = run(lib, name, knobs)
+            ok = ok and f == z == 1.0
+            print(f"{name} ({knobs}): fb equal {f:.6f}, zbuf equal "
+                  f"{z:.6f} ({time.time() - t0:.1f} s)", flush=True)
     return 0 if ok else 1
 
 

@@ -48,7 +48,15 @@ Phase 20, small: a world of 64 spheres, the
 object pool's capacity, through each rendering instance equals plain.
 The parity instance equals plain on seeded random rays through the
 fuzz level (rotated portals, ramps, fog, 2-high cells) at reflect 2 and
-6, and its phases instance gives its bits while counting every region."""
+6, and its phases instance gives its bits while counting every region.
+Slice 14 (chip_smoke phases 21-24, small): every rendering instance
+with the colour unpacked equals the plain C4 and packs to its own fb;
+the measurement knobs in parity mode (one instance a knob), with
+samples 2 and the fused loop and several at once (the instances that
+read their knobs at run time) equal plain; the new instances compile to
+the registers and spills recorded for them; shard_trace's parts equal
+trace_wave; the generated cave level's frame equals plain in both
+modes."""
 
 import dataclasses
 import re
@@ -62,10 +70,13 @@ from pwnfps_tpu_torch.ops import blur, probes, tracer
 from pwnfps_tpu_torch.ops.vec import V3
 from pwnfps_tpu_torch.parallel.sharding import (_halo, camera_rays,
                                                 render_cameras,
-                                                render_frame_sharded)
+                                                render_frame_sharded,
+                                                shard_trace)
 from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
                                            render_accumulated, render_frame)
-from pwnfps_tpu_torch.scene import (flagship_scene, fuzz_rays, maze_scene,
+from pwnfps_tpu_torch.ops.tracer_core import col_ftoint
+from pwnfps_tpu_torch.scene import (cave_scene, flagship_scene, fuzz_rays,
+                                    maze_scene,
                                     mesh_for, multicam_scene, parity_scene,
                                     portal_camera, ptrace_scene,
                                     ring_scene, spheres_scene, stress_scene)
@@ -341,8 +352,9 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):                   # int64 seeds
         tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds.long(), 0.0,
                           pack=True)
-    with pytest.raises(NotImplementedError):          # unpacked colour
-        tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds, 0.0)
+    col, dist = tracer.trace_wave(sc.tworld, sc.cfg, rays, rays, seeds,
+                                  0.0)                # the colour unpacked
+    assert len(col) == 4 and all(c.shape == (4,) and c.is_cuda for c in col)
 
 
 # (h, w, cl, rows a band, halo): the flagship's 8 bands of 136 rows and
@@ -1043,3 +1055,206 @@ def test_phases_instance_matches_parity(dev, world):
     with pytest.raises(ValueError):
         tracer.trace_wave_phases(sc.tworld, dataclasses.replace(
             sc.cfg, parity=False), *call[2:], page0=page0)
+
+
+# the rendering instances and their scenes, for the unpacked colour
+UNPACKED = {"fast": ("flagship", {}), "paged": ("maze", {}),
+            "samples": ("ptrace", {"samples": 2}),
+            "fused": ("flagship", {"fused": True}),
+            "fused_paged": ("maze", {"fused": True}),
+            "parity": ("parity", {}),
+            "parity_samples": ("parity", {"samples": 2}),
+            "parity_paged": ("maze_parity", {})}
+
+
+def _scene14(name, dev, w=64, h=48):
+    if name == "flagship":
+        return flagship_scene(w, h, dev)
+    if name == "parity":
+        return parity_scene(w, h, dev)
+    if name == "ptrace":
+        return ptrace_scene(w, h, dev, samples=2)
+    sc = maze_scene(w, h, dev, parity=name == "maze_parity")
+    sc.cam = portal_camera(sc)
+    return sc
+
+
+def _bits_equal(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("instance", list(UNPACKED))
+def test_unpacked_colour_matches_plain(dev, instance):
+    """pack=False on every rendering instance: the C4 and dist equal the
+    plain tracer's bit for bit, col_ftoint of the C4 equals the packed
+    launch's fb, and the launch counts in LAUNCHES_UNPACKED."""
+    name, kw = UNPACKED[instance]
+    sc = _scene14(name, dev)
+    cfg = dataclasses.replace(sc.cfg, **kw)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 1, dev)
+    page0 = cfg.cam_page
+    key = tracer.instance(cfg, sc.tworld.n_pages)[1]
+    before = tracer.LAUNCHES_UNPACKED[key]
+    col, dist = tracer.trace_wave(sc.tworld, cfg, ifrom, rays, seeds, sec,
+                                  page0=page0)
+    assert tracer.LAUNCHES_UNPACKED[key] == before + 1
+    col_p, dist_p = tracer.trace_wave_plain(sc.tworld, cfg, ifrom, rays,
+                                            seeds, sec, page0=page0)
+    assert all(_bits_equal(a, b) for a, b in zip(col, col_p))
+    assert _bits_equal(dist, dist_p)
+    fb, dist_k = tracer.trace_wave(sc.tworld, cfg, ifrom, rays, seeds, sec,
+                                   pack=True, page0=page0)
+    assert torch.equal(col_ftoint(col), fb)
+    assert _bits_equal(dist_k, dist)
+
+
+KNOBS = {"nowater": dict(water=False), "profile": dict(profile=True),
+         **{p: dict(probe=p) for p in tracer.PROBES}}
+# the knob combinations of the run-time-flag instances: (scene, fields)
+COMBOS = {
+    "samples_nowater": ("ptrace", dict(samples=2, water=False)),
+    "samples_profile": ("ptrace", dict(samples=2, profile=True)),
+    "samples_pad64": ("ptrace", dict(samples=2, probe="pad64")),
+    "parity_samples_nowater": ("parity", dict(samples=2, water=False)),
+    "parity_samples_fire1": ("parity", dict(samples=2, probe="fire1")),
+    "fused_nowater": ("flagship", dict(fused=True, water=False)),
+    **{f"fused_{p}": ("flagship", dict(fused=True, probe=p))
+       for p in tracer.PROBES},
+    "fused_paged_sel64": ("maze", dict(fused=True, probe="sel64")),
+    "profile_nowater_pad64": ("flagship", dict(profile=True, water=False,
+                                               probe="pad64")),
+    "parity_profile_nowater_pad64": ("parity", dict(
+        profile=True, water=False, probe="pad64")),
+    "paged_parity_nowater_fetch2x": ("maze_parity", dict(
+        water=False, probe="fetch2x")),
+}
+
+
+def _knob_check(dev, name, kw):
+    """The instance the knobs select against plain: fb, zbuf and, where
+    there is one, tstep bit for bit; a probe also leaves the bits of the
+    same knobs without it.  Returns the (entry, counter) it launched."""
+    sc = _scene14(name, dev)
+    cfg = dataclasses.replace(sc.cfg, **kw)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    page0 = cfg.cam_page
+    entry, key = tracer.instance(cfg, sc.tworld.n_pages)
+    counters = {"variant": tracer.LAUNCHES_VARIANT,
+                "parity_variant": tracer.LAUNCHES_PARITY_VARIANT,
+                "flags": tracer.LAUNCHES_FLAGS}
+    before = counters[entry][key] if entry in counters else None
+    if "profile" in tracer.variant(cfg):
+        fb_k, z_k, t_k = tracer.trace_wave_profile(
+            sc.tworld, cfg, ifrom, rays, seeds, sec, page0=page0)
+        segs = []
+        fb_p, z_p = tracer.trace_wave_plain(sc.tworld, cfg, ifrom, rays,
+                                            seeds, sec, True, page0=page0,
+                                            segs=segs)
+        assert torch.equal(t_k, torch.stack([o.tstep for o in segs]))
+    else:
+        fb_k, z_k = tracer.trace_wave(sc.tworld, cfg, ifrom, rays, seeds,
+                                      sec, pack=True, page0=page0)
+        fb_p, z_p = tracer.trace_wave_plain(sc.tworld, cfg, ifrom, rays,
+                                            seeds, sec, True, page0=page0)
+    if before is not None:
+        assert counters[entry][key] == before + 1
+    assert torch.equal(fb_k, fb_p)
+    assert _bits_equal(z_k, z_p)
+    if cfg.probe:
+        fb_b, z_b = tracer.trace_wave(sc.tworld, dataclasses.replace(
+            cfg, probe=""), ifrom, rays, seeds, sec, pack=True, page0=page0)
+        assert torch.equal(fb_k, fb_b)
+        assert _bits_equal(z_k, z_b)
+    return entry, key
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+@pytest.mark.parametrize("world", ["parity", "maze_parity"])
+def test_parity_variant_kernels_match_plain(dev, knob, world):
+    """Each knob in parity mode, one sample: its instance of
+    tracer_parity_variants.cu equals the plain parity tracer."""
+    assert _knob_check(dev, world, KNOBS[knob])[0] == "parity_variant"
+
+
+@pytest.mark.parametrize("combo", list(COMBOS))
+def test_flag_instances_match_plain(dev, combo):
+    """The knobs with samples 2, with the fused loop and several at once:
+    the run-time-flag instance of the structure equals plain (samples
+    with profile alone takes the samples instance: no tstep exists)."""
+    name, kw = COMBOS[combo]
+    entry, key = _knob_check(dev, name, kw)
+    assert entry == ("tracer" if combo == "samples_profile" else "flags")
+
+
+# The new measurement instances, as ptxas reported them (nvcc 12.8 for
+# sm_90a; registers, stack frame, spill stores, spill loads): parity
+# mode's one-knob instances (448 x 2 blocks: at most 72 registers) by
+# VAR_*, and the run-time-flag instances (VAR_FLAGS = 12) by <P, S, F>,
+# one page and paged alike.
+PARITY_VARIANT_PTXAS = {1: (70, 0, 0, 0), 2: (72, 32, 0, 0),
+                        3: (70, 0, 0, 0), 4: (70, 0, 0, 0),
+                        5: (72, 24, 32, 24), 6: (72, 0, 0, 0),
+                        7: (72, 24, 32, 24), 8: (72, 0, 0, 0),
+                        9: (72, 0, 0, 0), 10: (72, 24, 32, 24)}
+FLAGS_PTXAS = {"ILb0ELb0ELb0ELi12E": (94, 64, 0, 0),
+               "ILb0ELb1ELb0ELi12E": (96, 56, 28, 20),
+               "ILb0ELb0ELb1ELi12E": (102, 32, 0, 0),
+               "ILb1ELb0ELb0ELi12E": (72, 64, 40, 48),
+               "ILb1ELb1ELb0ELi12E": (96, 0, 0, 0)}
+
+
+def test_new_measurement_instances_compile_as_recorded(dev):
+    _build.build_all(["tracer_parity_variants", "tracer_flags"])
+    log = _build.PTXAS_LOG["tracer_parity_variants"]
+    for v, want in PARITY_VARIANT_PTXAS.items():
+        for t in (0, 1):
+            tag = f"ILb1ELb0ELb0ELi{v}ELb{t}EE"
+            assert (_registers(log, tag), *_frame_line(log, tag)) == want, \
+                tag
+    log = _build.PTXAS_LOG["tracer_flags"]
+    for tag, want in FLAGS_PTXAS.items():
+        for t in (0, 1):
+            got = (_registers(log, f"{tag}Lb{t}EE"),
+                   *_frame_line(log, f"{tag}Lb{t}EE"))
+            assert got == want, tag
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_shard_trace_equals_trace_wave(dev, parity):
+    """shard_trace on the card repeated 8 times, (cam, px) = (2, 4): part
+    k on mesh position k's device, the parts' concatenation bit-equal to
+    trace_wave on the whole batch, 8 launches."""
+    sc = (parity_scene if parity else flagship_scene)(64, 32, dev)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 2, dev)
+    mesh = mesh_for(2, 4, dev)
+    counter = "LAUNCHES_PARITY" if parity else "LAUNCHES"
+    before = getattr(tracer, counter)
+    fbs, zbs = shard_trace(sc.tworld, sc.meta, sc.cfg, mesh, ifrom, rays,
+                           seeds, sec)
+    assert getattr(tracer, counter) == before + 8
+    assert all(f.device == d for f, d in zip(fbs, mesh.flat))
+    fb, zb = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds, sec,
+                               pack=True)
+    assert torch.equal(torch.cat(fbs), fb)
+    assert _bits_equal(torch.cat(zbs), zb)
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_cave_frame_matches_plain(dev, parity):
+    """The generated cave level (generate_maze(11), its smoothing on the
+    card): the traced frame equals plain, and render_frame launches the
+    tracer and the blur once."""
+    sc = cave_scene(11, 160, 90, dev, parity=parity)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds, sec,
+                                  pack=True)
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, True)
+    assert torch.equal(fb_k, fb_p)
+    assert _bits_equal(z_k, z_p)
+    counter = "LAUNCHES_PARITY" if parity else "LAUNCHES"
+    before = (getattr(tracer, counter), blur.LAUNCHES)
+    fb, zbuf = render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(0))
+    assert (getattr(tracer, counter), blur.LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert int(torch.unique(fb).numel()) > 100

@@ -112,7 +112,8 @@ def test_port_never_imports_jax():
     parity, the paged maze in both modes and fused, the multi-sample
     frame in both modes, the portal chain), a tiny camera batch, a frame
     sharded over a mesh and a camera step on a mesh, a frame and a tick
-    of the game session, and running the three tools on the CPU imports
+    of the game session, running the three tools, generating the cave
+    level and a flat batch through `shard_trace` on the CPU imports
     neither jax nor any module of the JAX package pwnfps_tpu."""
     code = (
         "import contextlib, io, os, sys, pkgutil, importlib\n"
@@ -167,6 +168,15 @@ def test_port_never_imports_jax():
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    occupancy.main(['maze', '--device', 'cpu', '--width', '8',\n"
         "                    '--height', '4', '--out', os.devnull])\n"
+        "from pwnfps_tpu_torch.world.procgen import generate_maze\n"
+        "generate_maze(11, device='cpu')\n"
+        "from pwnfps_tpu_torch.ops.vec import V3\n"
+        "from pwnfps_tpu_torch.parallel.sharding import shard_trace\n"
+        "import torch\n"
+        "sc = flagship_scene(8, 2, 'cpu', maxsteps=64)\n"
+        "ones = V3(*(torch.full((16,), 0.5) for _ in range(3)))\n"
+        "shard_trace(sc.world, sc.meta, sc.cfg, mesh_for(2, 1, 'cpu'),\n"
+        "            ones, ones, torch.zeros(16, dtype=torch.int32), 0.0)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'pwnfps_tpu'))\n"
         "assert not bad, bad\n"

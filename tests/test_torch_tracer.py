@@ -129,25 +129,29 @@ def test_unported_config_raises():
     sc = flagship_scene(8, 2, "cpu", n_spheres=3)
     rays = V3(*(torch.ones(4) for _ in range(3)))
     seeds = torch.zeros(4, dtype=torch.int32)
-    # the measurement instances render in fast mode with one sample (the
-    # plain tracer on the CPU); with parity mode or samples > 1, or the
-    # fused loop (profile aside: it takes the per-wave structure) they raise
+    # the measurement knobs render in every mode and combination the JAX
+    # package accepts (the plain tracer on the CPU): alone, in parity
+    # mode, with samples > 1 and with the fused loop (profile takes the
+    # per-wave structure); none raises, and none launches a kernel
     for kw in (dict(profile=True), dict(probe="fire1"), dict(water=False),
                dict(profile=True, fused=True)):
         cfg = dataclasses.replace(sc.cfg, maxsteps=64, **kw)
-        before = dict(tracer.LAUNCHES_VARIANT)
-        col, dist = tracer.trace_wave(sc.tworld, cfg, rays, rays, seeds, SEC)
-        assert tracer.LAUNCHES_VARIANT == before
-        assert torch.isfinite(dist).all()
-        for extra in (dict(parity=True), dict(samples=2)):
-            with pytest.raises(NotImplementedError):
-                tracer.trace_wave(sc.tworld, dataclasses.replace(
-                    cfg, **extra), rays, rays, seeds, SEC)
+        for extra in (dict(), dict(parity=True), dict(samples=2)):
+            before = (dict(tracer.LAUNCHES_VARIANT),
+                      dict(tracer.LAUNCHES_FLAGS))
+            col, dist = tracer.trace_wave(sc.tworld, dataclasses.replace(
+                cfg, **extra), rays, rays, seeds, SEC)
+            assert (tracer.LAUNCHES_VARIANT, tracer.LAUNCHES_FLAGS) == before
+            assert torch.isfinite(dist).all()
     for kw in (dict(probe="fire1", fused=True), dict(water=False,
                                                      fused=True)):
-        with pytest.raises(NotImplementedError):
-            tracer.trace_wave(sc.tworld, dataclasses.replace(sc.cfg, **kw),
-                              rays, rays, seeds, SEC)
+        col, dist = tracer.trace_wave(sc.tworld, dataclasses.replace(
+            sc.cfg, maxsteps=64, **kw), rays, rays, seeds, SEC)
+        assert torch.isfinite(dist).all()
+    # the fused loop traces one sample (the JAX package asserts so)
+    with pytest.raises(ValueError):
+        tracer.trace_wave(sc.tworld, dataclasses.replace(
+            sc.cfg, fused=True, samples=2), rays, rays, seeds, SEC)
     # the fused loop renders in fast mode, and parity mode ignores it;
     # the fused loop traces one sample (the JAX package asserts so)
     for kw in (dict(fused=True), dict(parity=True, fused=True),

@@ -1,6 +1,7 @@
 """K1's measurement instances in the port's plain tracer: the eight
 calibration pads of RenderConfig.probe, water=False and profile=True
-(each ray's terminal DDA step count a wave), fast mode with one sample.
+(each ray's terminal DDA step count a wave), fast mode with one sample
+(and, below, the combinations).
 
   * every probe leaves fb and dist bit-equal to probe="" (the pads'
     results are thrown away behind a data-opaque select), on the demo
@@ -12,7 +13,10 @@ calibration pads of RenderConfig.probe, water=False and profile=True
     that cross the maze's cross-page portals, at a maxsteps (6) that some
     lanes exhaust (reflect 1);
   * profile leaves fb and dist bit-unchanged;
-  * the combinations no instance runs raise.
+  * the knobs in parity mode, with samples > 1, with the fused loop and
+    several at once run too (tests/test_torch_measure_combos.py holds
+    them against JAX), a probe leaving the bits of the same knobs
+    without it.
 
 Both JAX runs are a jitted chain of `run_segment` + `shade_and_bounce`
 and the unwind blend (trace_wave_env at samples 1, the chain
@@ -230,10 +234,20 @@ def test_profile_leaves_frame_unchanged(maze, base):
     dict(probe="cmp64", profile=True)],
     ids=lambda kw: "+".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_combinations_raise(kw, demo):
+    """Each combination runs (the JAX package accepts it): a probe leaves
+    fb and dist those of the same knobs without it, and with water=False
+    the distances stay those of water=True."""
     sc, rays = demo
-    with pytest.raises(NotImplementedError):
-        tracer.trace_wave(sc.tworld, dataclasses.replace(sc.cfg, **kw),
-                          *_torch_rays(*rays), SEC)
+    cfg = dataclasses.replace(sc.cfg, **kw)
+    fb, dist = tracer.trace_wave(sc.tworld, cfg, *_torch_rays(*rays), SEC,
+                                 pack=True)
+    assert torch.isfinite(dist).all()
+    base = dataclasses.replace(cfg, probe="", water=True)
+    fb0, dist0 = tracer.trace_wave(sc.tworld, base, *_torch_rays(*rays),
+                                   SEC, pack=True)
+    assert torch.equal(dist.view(torch.int32), dist0.view(torch.int32))
+    if cfg.water:
+        assert torch.equal(fb, fb0)
 
 
 def test_unknown_probe_raises(demo):
