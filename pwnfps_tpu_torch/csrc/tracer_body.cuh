@@ -30,7 +30,7 @@
 //     samples = 1 keeps its code;
 //   * parity (entry pwnfps_trace with parity set; the TPU kernel's
 //     _parity_math, tracer_pallas.py:446, and _sphere_pass_pallas,
-//     :491): unit steps (parity_step), the reference's per-cell
+//     :491): unit steps, the reference's per-cell
 //     sphere-bucket scan, and bit-exact math - the SSE rsqrt/rcp tables
 //     (core/approx.py, in their 8 KB compact form), IEEE
 //     round-to-nearest-even division and square root (__fdiv_rn,
@@ -76,9 +76,9 @@
 //     uniform branches leave the one-knob instances to price a pad.  A
 //     pad's result replaces fog or tmeta only where cdist > -1e30f is
 //     false, which the compiler cannot know is never, so the pad is
-//     computed and the bits stay those of the base instance; parity_step
+//     computed and the bits stay those of the base instance; dda_step
 //     runs the pads over segment_body's operands and masks, those of the
-//     lane's outcome.  One more, phases (VAR_PHASES), is parity mode's
+//     lane's outcome.  One more, phases (VAR_PHASES), is each mode's
 //     one-chain instance with clock64() counters around its regions
 //     (phase_add), for tools/phase_split.py.  Each `if constexpr` on V
 //     compiles away in the other instances, so they keep their code.
@@ -130,7 +130,7 @@
 //     kernel's time, more than the step occupancy alone moves;
 //   * persistent warps: resident blocks whose warps take tiles off an
 //     atomic queue, which the last block to finish resets.  Slower on the
-//     one-chain instances, which launch a block for every 10 tiles (fast)
+//     one-chain instances, which launch a block for every 12 tiles (fast)
 //     or 14 (parity); kept for samples and fused, whose long chains it
 //     balances;
 //   * a one-page world's cell tables (32 KB) in shared memory, in both
@@ -142,24 +142,29 @@
 //     224 to 32 bytes, which are the device sinf/cosf's buffer for their
 //     large-argument reduction (the nowater instance, which calls
 //     neither, and the parity ones have none);
-//   * 320-thread blocks, two an SM: 20 warps at 92 registers with no
-//     spill, the fastest budget without one (24 warps at 80 registers
-//     spill 28 bytes).  The fused loop keeps 128-thread blocks and its
-//     116 registers (Block): in 320-thread blocks it fits 96 with no
-//     spill and is 3% faster at 1080p, but 10-12% slower on the 720p
-//     portal chain and at 320x180.  The one-chain parity instance takes
-//     448-thread blocks, two an SM: 28 warps at 70 registers, no spill
-//     (512 threads spill);
-//   * parity mode's step (parity_step) takes one branch for the one
-//     outcome a lane's step has, where segment_body computes every
-//     outcome's mask and selects among them: with some 30 masks live,
-//     ptxas kept them as bits of a register and a step's common path
-//     ran to about 400 instructions.  About 2x off every parity frame
+//   * blocks of 384 threads, two an SM, for the one-chain fast
+//     instances: 24 warps at 79 registers with no spill, 3-5% faster
+//     than 320 x 2 and than 256 x 3 (before the one-outcome step they
+//     needed 92 registers, and 24 warps spilled 28 bytes).  The samples
+//     instances keep 320 x 2.  The fused loop keeps 128-thread blocks
+//     (Block): in 320-thread blocks it was 3% faster at 1080p, but
+//     10-12% slower on the 720p portal chain and at 320x180.  The
+//     one-chain parity instance takes 448-thread blocks, two an SM: 28
+//     warps at 67 registers, no spill (512 threads spill);
+//   * one DDA step for both modes (step_core) that takes one branch for
+//     the one outcome a lane's step has, where segment_body computes
+//     every outcome's mask and selects among them: with some 30 masks
+//     live, ptxas kept them as bits of a register and a parity step's
+//     common path ran to about 400 instructions.  About 2x off every
+//     parity frame, and fast mode steps through the same function
 //     (PERF.md);
+//   * fast mode takes each sphere's two square roots only where its
+//     candidate test can pass (sphere_all), at a segment's start and in
+//     a step's refresh: 5% off config #5's frame at the starts, about
+//     1.2x off the flagship's and the fused loop's 1080p frames with the
+//     refresh (PERF.md);
 //   * the samples instances shade the primary segment once a pixel
-//     (3% off config #5's frame in parity mode) and, in fast mode, take
-//     each sphere's two square roots at a segment's start only where its
-//     candidate test can pass (sphere_all<LAZY>; 5% off in all).  They
+//     (3% off config #5's frame in parity mode).  They
 //     run each sample's chain after the last, in every lane of a warp
 //     together.  Lanes that each start their next
 //     chain as soon as their own ends, with a warp vote that batches the
@@ -249,15 +254,15 @@ constexpr int SX = 0, SY = 1, SZ = 2, SR = 3, SREFL = 4, SCB = 5,
 constexpr int MAX_WAVES = 8;
 constexpr int WARP = 32;
 // Threads a block and the blocks an SM that __launch_bounds__ keeps
-// resident, by instance <P, S, F>: 320 x 2, 20 warps at 96 registers or
-// fewer.  The one-chain parity instance takes 448 x 2, 28 warps at 72
-// registers or fewer (70, no spill); the fused loop keeps 128 x 1 (116
-// registers, no spill), which measured faster for it on the 720p portal
-// chain and at 320x180 (PERF.md).  The unwind records' stride is the
-// block's threads.
+// resident, by instance <P, S, F>: the one-chain fast instances 384 x 2,
+// 24 warps at 80 registers or fewer; the one-chain parity instance
+// 448 x 2, 28 warps at 72 or fewer; the samples instances 320 x 2, 20
+// warps at 96 or fewer; the fused loop 128 x 1, which measured faster
+// for it than 320 x 2 on the 720p portal chain and at 320x180 (PERF.md).
+// The unwind records' stride is the block's threads.
 template <bool P, bool S, bool F>
 struct Block {
-    static constexpr int threads = F ? 128 : (P && !S) ? 448 : 320;
+    static constexpr int threads = F ? 128 : S ? 320 : P ? 448 : 384;
     static constexpr int min_blocks = F ? 1 : 2;
     static constexpr int warps = threads / WARP;
 };
@@ -570,11 +575,11 @@ __device__ __forceinline__ bool sphere_rel(const World& w, float px,
 // Hoisted sphere candidates of the lane's current line
 // (tracer_core.make_sphere_all run_full); `run` is the lane's mask &
 // active, and only a lane on the sphere page has candidates.  Returns
-// the relevance bit (0 or 2).  LAZY: a sphere's two square roots only
+// the relevance bit (0 or 2).  A sphere's two square roots are taken only
 // where its candidate test can pass (the line ahead within its radius),
-// the only place their result is read; the samples instances' segment
-// starts take it.
-template <bool LAZY = false>
+// the only place their result is read; ROOTS (fire1's full pass,
+// tracer_core.py:717) takes them for every sphere.
+template <bool ROOTS = false>
 __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
     if (run && s.page == w.sphere_page) {
         float fire, best_aux;
@@ -607,9 +612,10 @@ __device__ int sphere_all(const World& w, Seg& s, bool run, bool merge) {
             const float calcrad2 = dist2 - dot * dot;
             const bool near = dot > 0.0f && calcrad2 < r[SRAD2];
             float sph_dist = 0.0f;
-            if (!LAZY || near)
+            if (ROOTS || near)
                 sph_dist = sqrtf(dist2) - sqrtf(fmax_nan(
                     1.0f - calcrad2 * r[SINVR2], 0.0f));
+            if constexpr (ROOTS) keep(sph_dist);
             const float te_d = s.cdist + t_entry;
             const float aux_c = sph_dist + te_d;
             const float fire_c = fmax_nan(aux_c, te_d);
@@ -912,59 +918,124 @@ __device__ __forceinline__ void apply_pad(const World& w, const float vs[8],
     }
 }
 
-// segment_body's masks that a calibration pad reads (its ms and ns),
-// as parity_core reports a lane's outcome
+// The masks of segment_body (tracer_core.py) that a calibration pad reads
+// (its ms and ns), as step_core reports the lane's outcome
 constexpr int O_XSTEP = 1, O_ZSTEP = 2, O_TERM = 4, O_PGO = 8, O_CONT = 16,
               O_MY2 = 32, O_FT = 64, O_NEAR = 128, O_SPHM = 256,
               O_WALLT = 512;
 
-// One DDA step of an active lane in parity mode (tracer_core.
-// segment_body with the cell's sphere buckets scanned): segment_body's
-// masks, which pick one outcome a lane, resolved here by branches on
-// that outcome, each computing its fields by the same float operations
-// on the same operands, so the bits are segment_body's.  In order: the
-// sphere exit before a ramp step, on a floor or 2-high cell the sphere
-// exit and the Y hit, a ramp's Y hit, then on any marchable cell the X/Z
-// step (or the 2-high wall it meets), else a portal cell's jump or end,
-// a wall, or nothing; a lane that stays active meets the end-of-step
-// sphere check.  T: as fetch.  V: the measurement instance (VAR_*):
-// fire1 computes the portal jump and the ramp tilt every step (the JAX
-// step's event branch, which parity mode fires with the bucket scan,
-// tracer_core.py:717, :866), fetch2x fetches twice; returns the masks of
-// segment_body that the pads read (O_*), those of the lane's outcome.
-template <int V, bool T>
-__device__ int parity_core(const World& w, Seg& s) {
+// A step's X and Z wall distances after fast mode's empty-space skip
+// (tracer_core.py segment_body): kx (kz) more cells of the floor run
+// ahead in X (Z), as far as the other axis allows; none in parity mode
+struct Skip {
+    float wxe, wze;
+    int kx, kz;
+};
+
+template <bool P>
+__device__ __forceinline__ Skip skip_of(const World& w, const Seg& s) {
+    Skip k = {s.wx, s.wz, 0, 0};
+    if constexpr (!P) {
+        if (w.skip) {
+            const int runx = (s.ent >> 7) & 0xF;
+            const int runz = (s.ent >> 11) & 0xF;
+            const int jx = __float2int_rz(floorf((s.wz - s.wx)
+                                                 * fabsf(s.rx)));
+            const int jz = __float2int_rz(floorf((s.wx - s.wz)
+                                                 * fabsf(s.rz)));
+            k.kx = min(max(min(runx, jx), 0), 15);
+            k.kz = min(max(min(runz, jz), 0), 15);
+            k.wxe = s.wx + (float)k.kx * s.ix;
+            k.wze = s.wz + (float)k.kz * s.iz;
+        }
+    }
+    return k;
+}
+
+// Fast mode's hoisted-sphere bookkeeping after a line change (a portal
+// jump, or a step that moved the ray to another Y line where bit 1 of
+// sph_dirty asks for it): the refresh bits become `dirty`, and a
+// candidate whose entry lies behind the new position is dropped
+template <bool P>
+__device__ __forceinline__ void line_change(const World& w, Seg& s,
+                                            int dirty) {
+    if constexpr (!P) {
+        if (w.n_spheres > 0) {
+            if (s.aux_dist != -1.0f && s.cdist < s.aux_t0)
+                s.aux_dist = -1.0f;
+            s.sph_dirty = dirty;
+        }
+    }
+}
+
+// One DDA step of an active lane in either mode (tracer_core.
+// segment_body), up to the end-of-iteration sphere check: segment_body
+// computes every outcome's mask and selects among them; here a lane
+// takes one branch for its one outcome, each computing its fields by the
+// same float operations on the same operands, so the bits are
+// segment_body's.  First the spheres: parity mode scans the cell's
+// buckets, fast mode refreshes its hoisted candidates where sph_dirty
+// asks.  Then in order: the sphere exit before a ramp step, on a floor or
+// 2-high cell the sphere exit and the Y hit, a ramp's Y hit, then on any
+// marchable cell the X/Z step (fast mode: past the empty-space skip's
+// cells) or the 2-high wall it meets, else a portal cell's jump or end, a
+// wall, or nothing.  T: as fetch.  V: the measurement instance (VAR_*):
+// fire1 runs the event bodies every step (tracer_core.py:717) - fast
+// mode's sphere refresh, every sphere's roots taken, on a copy that the
+// lane keeps only where its own bit asks, the portal jump and the target line's sphere relevance;
+// parity mode's jump and ramp tilt - fetch2x fetches twice.  Returns the
+// masks of the lane's outcome (O_*), and in `fire` the distance the
+// end-of-iteration check compares with.
+template <bool P, int V, bool T>
+__device__ int step_core(const World& w, Seg& s, float& fire) {
     // the pads' data-opaque select: true unless cdist is NaN
     const bool opq = s.cdist > -1e30f;
-    if (w.k_bucket > 0) sphere_pass(w, s);
+    const bool has_sph = !P && w.n_spheres > 0;
+    const bool fire1 = probe_of<V>(w) == VAR_FIRE1;
+    if constexpr (P) {
+        if (w.k_bucket > 0) sphere_pass(w, s);
+    } else if (fire1) {
+        if (has_sph) {
+            Seg t = s;
+            const int rel = sphere_all<true>(w, t, true, true);
+            if (s.sph_dirty & 1) {
+                s = t;
+                s.sph_dirty = rel;
+            }
+        }
+    } else if (has_sph && (s.sph_dirty & 1)) {
+        s.sph_dirty = sphere_all(w, s, true, true);
+    }
     const int cls = s.ent & 0xF;
     const bool is_ramp = bit(RAMPS, cls);
     const bool has_aux = s.aux_dist != -1.0f;
-    const float fire = s.aux_dist;
+    fire = has_sph ? fmax_nan(s.aux_dist, s.aux_t0) : s.aux_dist;
     const bool sgt = s.cdist > fire;
-    int o = 0;                               // the outcome's masks (O_*)
-    if constexpr (V == VAR_FIRE1 || V == VAR_FLAGS) {
-        if (probe_of<V>(w) == VAR_FIRE1) {
-            // the event bodies on every step; their results are kept in
-            // registers here and read only where the cell's class asks
-            Jump jf = portal_jump<T>(w, s);
+    if (fire1) {
+        // the event bodies' results, kept in registers and read only where
+        // the cell's class asks
+        Jump jf = portal_jump<T>(w, s);
+        keep(jf.dpage);
+        keep(jf.pkind);
+        keep(jf.ldir);
+        keep(jf.cx);
+        keep(jf.cz);
+        keep(jf.px);
+        keep(jf.pz);
+        keep(jf.vx);
+        keep(jf.vz);
+        if constexpr (P) {
             float tf = 0.0f, wf = 0.0f;
             ramp_tilt<true>(s, cls, tf, wf);
-            keep(jf.dpage);
-            keep(jf.pkind);
-            keep(jf.ldir);
-            keep(jf.cx);
-            keep(jf.cz);
-            keep(jf.px);
-            keep(jf.pz);
-            keep(jf.vx);
-            keep(jf.vz);
             keep(tf);
             keep(wf);
+        } else if (has_sph) {
+            int nr = sphere_rel(w, jf.px, jf.pz, jf.vx, jf.vz, jf.dpage);
+            keep(nr);
         }
     }
     float tilt = 0.0f, wy_ramp = 0.0f;
-    if (is_ramp) ramp_tilt<true>(s, cls, tilt, wy_ramp);
+    if (is_ramp) ramp_tilt<P>(s, cls, tilt, wy_ramp);
     const float ray_y2 = s.ry + tilt;
     if (is_ramp && has_aux && sgt) {         // the sphere exits first
         s.tmeta = T_SPHERE;
@@ -977,11 +1048,12 @@ __device__ int parity_core(const World& w, Seg& s) {
     const bool is_fogc = bit(FOGC, cls);
     if (bit(FLOORISH, cls) || is_tall || is_ramp) {
         const float wx = s.wx, wz = s.wz;
+        const Skip k = skip_of<P>(w, s);
         const float wy_tall = s.gy > 0 ? s.wy + s.iy : s.wy;
         const float wy = is_tall ? wy_tall : (is_ramp ? wy_ramp : s.wy);
-        const bool ymin = wy < wx && wy < wz;
-        const bool xstep = !ymin && wx < wz;
-        const float t = ymin ? wy : (xstep ? wx : wz);
+        const bool ymin = wy < k.wxe && wy < k.wze;
+        const bool xstep = !ymin && k.wxe < k.wze;
+        const float t = ymin ? wy : (xstep ? k.wxe : k.wze);
         const int gsel = is_ramp ? s.gy : s.gx;
         const int ldir2 = ymin ? (s.gy < 0 ? FYN : FYP)
             : xstep ? (gsel < 0 ? FXN : FXP) : (s.gz < 0 ? FZN : FZP);
@@ -1014,35 +1086,35 @@ __device__ int parity_core(const World& w, Seg& s) {
             return O_TERM | O_NEAR | O_MY2 | O_WALLT | (is_ramp ? 0 : O_FT);
         }
         // the X/Z step and the one fetch
-        const float sub = xstep ? wx : wz;
+        const float sub = xstep ? k.wxe : k.wze;
         const float wnx = xstep ? s.ix : wx - sub;
         float wny = wy - sub;
         const float wnz = xstep ? wz - sub : s.iz;
         if (is_tall && s.gy > 0) wny = wny - s.iy;
-        const int cx2 = s.cx + (xstep ? s.gx : 0);
-        const int cz2 = s.cz + (xstep ? 0 : s.gz);
+        const int cx2 = s.cx + (xstep ? s.gx * (1 + k.kx) : 0);
+        const int cz2 = s.cz + (xstep ? 0 : s.gz * (1 + k.kz));
         const float ray_y3 = is_ramp ? ray_y2 - tilt : ray_y2;
         if (is_ramp) wny = (ray_y3 >= 0.0f ? 1.0f - p2y : p2y) * s.iy;
         int f_next = fetch<T>(w, cx2, cz2, s.page);
-        if constexpr (V == VAR_FETCH2X || V == VAR_FLAGS) {
-            if (probe_of<V>(w) == VAR_FETCH2X) {
-                // a second fetch at a runtime-equal index
-                // (tracer_core.py:1082)
-                const int dup = fetch<T>(w, cx2, cz2 + (opq ? 0 : 1),
-                                         s.page);
-                f_next = opq ? f_next : dup;
-            }
+        if (probe_of<V>(w) == VAR_FETCH2X) {
+            // a second fetch at a runtime-equal index (tracer_core.py:1082)
+            const int dup = fetch<T>(w, cx2, cz2 + (opq ? 0 : 1), s.page);
+            f_next = opq ? f_next : dup;
         }
-        // transitions
+        // transitions: a step between a lower and a 2-high cell moves the
+        // ray's Y line (tr)
         const int ncls = f_next & 0xF;
         float pos3y = p2y;
+        bool tr = false;
         if (cls == LOWER && bit(TALLS, ncls)) {
             pos3y = pos3y + 1.0f;
             wny = s.gy < 0 ? wny + s.iy : wny - s.iy;
+            tr = true;
         }
         if (is_tall && ncls == LOWER) {
             pos3y = pos3y - 1.0f;
             wny = s.gy > 0 ? wny + s.iy : wny - s.iy;
+            tr = true;
         }
         // the 2-high wall check
         const int xc = (f_next >> 4) & 3;
@@ -1056,15 +1128,16 @@ __device__ int parity_core(const World& w, Seg& s) {
         s.pz = p2z;
         s.cdist = cdist2;
         s.fog = fog2;
+        const bool shift = (tr || is_ramp) && (s.sph_dirty & 2);
         const int o_step = (xstep ? O_XSTEP : O_ZSTEP)
             | (is_ramp ? 0 : O_FT);
         if (chk && xc != 1) {                // a 2-high wall
             s.tmeta = T_WALL | (C_WALL << 2);
             s.ldir = ldir2;
             s.active = false;
+            if (shift) line_change<P>(w, s, s.sph_dirty | 1);
             return o_step | O_TERM | O_NEAR | O_WALLT;
         }
-        o = o_step | O_CONT;
         s.ent = f_next;
         s.ry = ray_y3;
         s.wx = wnx;
@@ -1075,81 +1148,79 @@ __device__ int parity_core(const World& w, Seg& s) {
         s.ldir = is_ramp ? (xstep ? (s.rx < 0.0f ? FXN : FXP)
                                   : (s.rz < 0.0f ? FZN : FZP))
                          : ldir2;
-    } else if (cls == PORTAL || cls == WALL) {
-        const Jump j = cls == PORTAL ? portal_jump<T>(w, s) : Jump{};
-        if (cls == PORTAL && j.pkind == 1) {    // through the portal
-            s.ent = fetch<T>(w, j.cx, j.cz, j.dpage);
-            if constexpr (V == VAR_FETCH2X || V == VAR_FLAGS) {
-                if (probe_of<V>(w) == VAR_FETCH2X) {
-                    const int dup = fetch<T>(w, j.cx, j.cz + (opq ? 0 : 1),
-                                             j.dpage);
-                    s.ent = opq ? s.ent : dup;
-                }
-            }
-            s.page = j.dpage;
-            s.px = j.px;
-            s.pz = j.pz;
-            s.rx = j.vx;
-            s.rz = j.vz;
-            s.wx = j.wx;
-            s.wz = j.wz;
-            s.ix = j.ix;
-            s.iz = j.iz;
-            s.gx = j.gx;
-            s.gz = j.gz;
-            s.cx = j.cx;
-            s.cz = j.cz;
-            s.ldir = j.ldir;
-            o = O_PGO;
-        } else if (cls == WALL || j.pkind >= 2) {  // a wall, a bad portal
-            if (has_aux && sgt) {
-                s.tmeta = T_SPHERE;
-                s.cdist = s.aux_dist;
-            } else {
-                const int colid = cls == PORTAL
-                    ? (j.pkind == 3 ? C_MAGENTA : C_WALL)
-                    : (s.ldir == FYP ? C_CEIL : C_WALL);
-                s.tmeta = T_WALL | (colid << 2);
-            }
-            s.active = false;
-            return O_TERM | (has_aux && sgt ? O_SPHM : O_WALLT);
+        if (shift) line_change<P>(w, s, s.sph_dirty | 1);
+        return o_step | O_CONT;
+    }
+    if (cls != PORTAL && cls != WALL) return 0;
+    const Jump j = cls == PORTAL ? portal_jump<T>(w, s) : Jump{};
+    if (cls == PORTAL && j.pkind == 1) {     // through the portal
+        s.ent = fetch<T>(w, j.cx, j.cz, j.dpage);
+        if (probe_of<V>(w) == VAR_FETCH2X) {
+            const int dup = fetch<T>(w, j.cx, j.cz + (opq ? 0 : 1), j.dpage);
+            s.ent = opq ? s.ent : dup;
         }
+        s.page = j.dpage;
+        s.px = j.px;
+        s.pz = j.pz;
+        s.rx = j.vx;
+        s.rz = j.vz;
+        s.wx = j.wx;
+        s.wz = j.wz;
+        s.ix = j.ix;
+        s.iz = j.iz;
+        s.gx = j.gx;
+        s.gz = j.gz;
+        s.cx = j.cx;
+        s.cz = j.cz;
+        s.ldir = j.ldir;
+        // the line past the portal: its sphere relevance
+        if (has_sph)
+            line_change<P>(w, s, sphere_rel(w, s.px, s.pz, s.rx, s.rz,
+                                            s.page) ? 3 : 0);
+        return O_PGO;
     }
-    // ---- end-of-iteration sphere check ----
-    if (has_aux && s.cdist > fire) {
-        s.tmeta = T_SPHERE;
-        s.cdist = s.aux_dist;
+    if (cls == WALL || j.pkind >= 2) {       // a wall, a bad portal
+        if (has_aux && sgt) {
+            s.tmeta = T_SPHERE;
+            s.cdist = s.aux_dist;
+        } else {
+            const int colid = cls == PORTAL
+                ? (j.pkind == 3 ? C_MAGENTA : C_WALL)
+                : (s.ldir == FYP ? C_CEIL : C_WALL);
+            s.tmeta = T_WALL | (colid << 2);
+        }
         s.active = false;
+        return O_TERM | (has_aux && sgt ? O_SPHM : O_WALLT);
     }
-    return o;
+    return 0;
 }
 
-// One DDA step of an active lane in parity mode: parity_core, and for
-// the pad instances the pad over segment_body's operands, from the
-// step's starting state and the masks of the lane's outcome.  The pad
-// comes after the end-of-iteration sphere check here and before it in
-// segment_body, which is the same wherever cdist is a number.
-template <int V, bool T>
-__device__ __forceinline__ void parity_step(const World& w, Seg& s) {
-    if constexpr (is_pad(V) || V == VAR_FLAGS) {
-        if (V == VAR_FLAGS && !is_pad(probe_of<V>(w))) {
-            parity_core<V, T>(w, s);
-            return;
-        }
+// One DDA step of an active lane, in the instance's mode: step_core, for
+// the pad instances the pad over segment_body's operands (the step's
+// starting state, its X/Z distances past the skip) and the masks of the
+// lane's outcome, then the end-of-iteration sphere check, in
+// segment_body's order.
+template <bool P, int V, bool T>
+__device__ __forceinline__ void dda_step(const World& w, Seg& s) {
+    float fire;
+    bool padded = false;
+    if constexpr (is_pad(V) || V == VAR_FLAGS) padded = is_pad(probe_of<V>(w));
+    if (padded) {
         const int cls = s.ent & 0xF;
         const bool is_ramp = bit(RAMPS, cls);
         const bool is_tall = bit(TALLS, cls);
         float tilt = 0.0f, wy_ramp = 0.0f;
-        if (is_ramp) ramp_tilt<true>(s, cls, tilt, wy_ramp);
+        if (is_ramp) ramp_tilt<P>(s, cls, tilt, wy_ramp);
+        const Skip k = skip_of<P>(w, s);
         const float wy = is_tall ? (s.gy > 0 ? s.wy + s.iy : s.wy)
                                  : (is_ramp ? wy_ramp : s.wy);
-        const bool ymin = wy < s.wx && wy < s.wz;
-        const bool xmin = !ymin && s.wx < s.wz;
-        const float t = ymin ? wy : (xmin ? s.wx : s.wz);
+        const bool ymin = wy < k.wxe && wy < k.wze;
+        const bool xmin = !ymin && k.wxe < k.wze;
+        const float t = ymin ? wy : (xmin ? k.wxe : k.wze);
         const float vs[8] = {s.px, s.py, s.pz, s.rx, s.ry, s.rz, s.wx, s.wz};
         const float mul = s.rx, add = s.pz + s.rz * t;
         const bool opq = s.cdist > -1e30f;
-        const int o = parity_core<V, T>(w, s);
+        const int o = step_core<P, V, T>(w, s, fire);
         const bool ms[8] = {(o & O_XSTEP) != 0, (o & O_ZSTEP) != 0,
                             (o & O_TERM) != 0, (o & O_PGO) != 0,
                             (o & O_CONT) != 0, (o & O_MY2) != 0, ymin, xmin};
@@ -1158,286 +1229,14 @@ __device__ __forceinline__ void parity_step(const World& w, Seg& s) {
                             (o & O_SPHM) != 0, (o & O_WALLT) != 0};
         apply_pad<V>(w, vs, mul, add, ms, ns, opq, s.fog, s.tmeta);
     } else {
-        parity_core<V, T>(w, s);
+        step_core<P, V, T>(w, s, fire);
     }
-}
-
-// One DDA step of an active lane in fast mode (tracer_core.segment_body):
-// it refreshes its hoisted candidates after line changes (has_sph:
-// hoisted candidates exist).  V: the measurement instance (VAR_*); T: as
-// fetch.
-template <int V, bool T>
-__device__ void segment_body(const World& w, Seg& s) {
-    const bool has_sph = w.n_spheres > 0;
-    const int cls = s.ent & 0xF;
-    // the pads' data-opaque select: true unless cdist is NaN
-    const bool opq = s.cdist > -1e30f;
-
-    // ---- rare events: sphere refresh, portal targets, ramp ----
-    const bool fire1 = probe_of<V>(w) == VAR_FIRE1;
-    if constexpr (V == VAR_FIRE1 || V == VAR_FLAGS) {
-        if (fire1) {
-            // the refresh on every step, on a copy the lane keeps only
-            // when its own bit asks for it (tracer_core.py:717)
-            if (has_sph) {
-                Seg t = s;
-                const int rel = sphere_all(w, t, true, true);
-                if (s.sph_dirty & 1) {
-                    s = t;
-                    s.sph_dirty = rel;
-                }
-            }
-        } else if (has_sph && (s.sph_dirty & 1)) {
-            s.sph_dirty = sphere_all(w, s, true, true);
-        }
-    } else if (has_sph && (s.sph_dirty & 1)) {
-        s.sph_dirty = sphere_all(w, s, true, true);
-    }
-    const bool is_portal = cls == PORTAL;
-    const bool is_ramp = bit(RAMPS, cls);
-    Jump j = {};
-    j.dpage = s.page;
-    bool nr = false;
-    // fire1: the portal targets on every step; only pgo lanes read them
-    if (fire1 || is_portal) {
-        j = portal_jump<T>(w, s);
-        if (has_sph) nr = sphere_rel(w, j.px, j.pz, j.vx, j.vz, j.dpage);
-    }
-    float tilt = 0.0f, wy_ramp = 0.0f;
-    if (is_ramp) ramp_tilt<false>(s, cls, tilt, wy_ramp);
-
-    const bool is_floorish = bit(FLOORISH, cls);
-    const bool is_tall = bit(TALLS, cls);
-    const bool is_wall = cls == WALL;
-    const bool is_fogc = bit(FOGC, cls);
-    const bool has_aux = s.aux_dist != -1.0f;
-    const float fire = has_sph ? fmax_nan(s.aux_dist, s.aux_t0)
-                               : s.aux_dist;
-    const float ray_y2 = s.ry + tilt;
-
-    // ---- empty-space skip ----
-    const float wx = s.wx, wy0 = s.wy, wz = s.wz;
-    float wxe = wx, wze = wz;
-    int kx = 0, kz = 0;
-    if (w.skip) {
-        const int runx = (s.ent >> 7) & 0xF;
-        const int runz = (s.ent >> 11) & 0xF;
-        const int jx = __float2int_rz(floorf((wz - wx) * fabsf(s.rx)));
-        const int jz = __float2int_rz(floorf((wx - wz) * fabsf(s.rz)));
-        kx = min(max(min(runx, jx), 0), 15);
-        kz = min(max(min(runz, jz), 0), 15);
-        wxe = wx + (float)kx * s.ix;
-        wze = wz + (float)kz * s.iz;
-    }
-    const float wy_tall = s.gy > 0 ? wy0 + s.iy : wy0;
-    const float wy = is_tall ? wy_tall : (is_ramp ? wy_ramp : wy0);
-
-    // ---- ramps: sphere exit before stepping ----
-    bool a = true;
-    const bool sgt = s.cdist > fire;
-    const bool m_presph = is_ramp && has_aux && sgt;
-    a = a && !m_presph;
-
-    // ---- min-axis crossing ----
-    const bool ymin = wy < wxe && wy < wze;
-    const bool xmin = !ymin && wxe < wze;
-    const bool zmin = !(ymin || xmin);
-    const float t = ymin ? wy : (xmin ? wxe : wze);
-    const int gsel = is_ramp ? s.gy : s.gx;
-    const int ldir2 = ymin ? (s.gy < 0 ? FYN : FYP)
-        : xmin ? (gsel < 0 ? FXN : FXP) : (s.gz < 0 ? FZN : FZP);
-    const bool marchable = is_floorish || is_tall || is_ramp;
-    const float cdist2 = s.cdist + t;
-    const float p2x = s.px + s.rx * t;
-    const float p2y = s.py + ray_y2 * t;
-    const float p2z = s.pz + s.rz * t;
-
-    // ---- floor/tall: fog + sphere exit + Y hit ----
-    bool ft = a && (is_floorish || is_tall);
-    const bool m_sph2 = ft && has_aux && cdist2 > fire;
-    const float extra = (is_fogc && s.aux_dist > s.cdist)
-        ? s.aux_dist - s.cdist : 0.0f;
-    a = a && !m_sph2;
-    ft = a && (is_floorish || is_tall);
-    const float fog2 = (ft && is_fogc) ? s.fog + (cdist2 - s.cdist)
-                                       : s.fog;
-    const bool isY2 = ldir2 == FYN || ldir2 == FYP;
-    const bool m_yhit = ft && isY2;
-    a = a && !m_yhit;
-
-    // ---- ramp Y hit ----
-    const bool ramp_go = a && is_ramp;
-    const bool m_ryhit = ramp_go && isY2;
-    a = a && !m_ryhit;
-
-    // ---- X/Z continuation ----
-    const bool cont = a && marchable;
-    const bool xstep = cont && xmin;
-    const bool zstep = cont && zmin;
-    const bool stepped = xstep || zstep;
-    const float sub = xstep ? wxe : wze;
-    const float wnx = xstep ? s.ix : wx - sub;
-    float wny = wy - sub;
-    const float wnz = zstep ? s.iz : wz - sub;
-    if (stepped && is_tall && s.gy > 0) wny = wny - s.iy;
-    const int cx2 = s.cx + (xstep ? s.gx * (1 + kx) : 0);
-    const int cz2 = s.cz + (zstep ? s.gz * (1 + kz) : 0);
-    const int ldir3 = (ramp_go && xstep) ? (s.rx < 0.0f ? FXN : FXP)
-        : (ramp_go && zstep) ? (s.rz < 0.0f ? FZN : FZP) : ldir2;
-    const bool rgs = ramp_go && stepped;
-    const float ray_y3 = rgs ? ray_y2 - tilt : ray_y2;
-    if (rgs) wny = (ray_y3 >= 0.0f ? 1.0f - p2y : p2y) * s.iy;
-
-    // ---- portal traversal + the one per-step fetch ----
-    const bool pgo = a && is_portal && j.pkind == 1;
-    int f_next = s.ent;
-    if (stepped || pgo) {
-        f_next = pgo ? fetch<T>(w, j.cx, j.cz, j.dpage)
-                     : fetch<T>(w, cx2, cz2, s.page);
-        if constexpr (V == VAR_FETCH2X || V == VAR_FLAGS) {
-            if (probe_of<V>(w) == VAR_FETCH2X) {
-                // a second fetch at a runtime-equal index
-                // (tracer_core.py:1082)
-                const int dz = opq ? 0 : 1;
-                const int dup = pgo ? fetch<T>(w, j.cx, j.cz + dz, j.dpage)
-                                    : fetch<T>(w, cx2, cz2 + dz, s.page);
-                f_next = opq ? f_next : dup;
-            }
-        }
-    }
-
-    // ---- transitions ----
-    const int ncls = f_next & 0xF;
-    float pos3y = p2y;
-    const bool tr1 = stepped && cls == LOWER && bit(TALLS, ncls);
-    if (tr1) {
-        pos3y = pos3y + 1.0f;
-        wny = s.gy < 0 ? wny + s.iy : wny - s.iy;
-    }
-    const bool tr2 = stepped && is_tall && ncls == LOWER;
-    if (tr2) {
-        pos3y = pos3y - 1.0f;
-        wny = s.gy > 0 ? wny + s.iy : wny - s.iy;
-    }
-
-    // ---- 2-high wall check ----
-    const int xc = (f_next >> 4) & 3;
-    const bool chk = stepped && is_tall && (pos3y < 0.0f || pos3y > 1.0f);
-    if (chk && xc == 2) {
-        pos3y = pos3y + 1.0f;
-        wny = s.gy > 0 ? wny - s.iy : wny + s.iy;
-    }
-    const bool m_wall2 = chk && xc != 1;
-    a = a && !m_wall2;
-
-    // ---- portal cells + plain wall ----
-    const bool p_bad = a && is_portal && j.pkind == 2;
-    const bool p_wrong = a && is_portal && j.pkind == 3;
-    const bool wall0 = a && is_wall;
-    const bool sphfire = has_aux && sgt;
-    a = a && !(p_bad || p_wrong || wall0);
-    const bool m_pww = p_wrong && !sphfire;
-    const bool m_wallm = wall0 && !sphfire;
-
-    // ---- merged terminal + survivor writes ----
-    const bool sphm = m_presph || m_sph2 || ((p_bad || p_wrong || wall0)
-                                             && sphfire);
-    const bool term = sphm || m_yhit || m_ryhit || m_wall2
-        || ((p_bad || p_wrong || wall0) && !sphfire);
-    const bool near = m_yhit || m_ryhit || m_wall2;
-    const bool my2 = m_yhit || m_ryhit;
-    const bool cont2 = a && stepped;
-    const bool pgo2 = a && pgo;
-    const bool cn = cont2 || near;
-    const bool cw = cont2 || m_wall2;
-    if (term) {
-        const int colid = m_yhit ? (s.gy > 0 ? C_CEIL : C_FLOOR)
-            : m_ryhit ? (ray_y2 >= 0.0f ? C_CEIL : C_FLOOR)
-            : m_pww ? C_MAGENTA
-            : (m_wallm && s.ldir == FYP) ? C_CEIL : C_WALL;
-        s.tmeta = sphm ? T_SPHERE : (T_WALL | (colid << 2));
-    }
-    const float npx = pgo2 ? j.px : (cn ? p2x : s.px);
-    const float npy = cw ? pos3y : (my2 ? p2y : s.py);
-    const float npz = pgo2 ? j.pz : (cn ? p2z : s.pz);
-    const float nry = cont2 ? ray_y3
-        : ((m_presph || m_ryhit) ? ray_y2 : s.ry);
-    const float nrx = pgo2 ? j.vx : s.rx;
-    const float nrz = pgo2 ? j.vz : s.rz;
-    const float nwx = pgo2 ? j.wx : (cont2 ? wnx : wx);
-    const float nwy = cont2 ? wny : wy0;
-    const float nwz = pgo2 ? j.wz : (cont2 ? wnz : wz);
-    const float nix = pgo2 ? j.ix : s.ix;
-    const float niz = pgo2 ? j.iz : s.iz;
-    const int ngx = pgo2 ? j.gx : s.gx;
-    const int ngz = pgo2 ? j.gz : s.gz;
-    const int ncx = cont2 ? cx2 : (pgo2 ? j.cx : s.cx);
-    const int ncz = cont2 ? cz2 : (pgo2 ? j.cz : s.cz);
-    const float ncd = cn ? cdist2 : (sphm ? s.aux_dist : s.cdist);
-    float nfog = (cont2 || m_yhit || m_wall2) ? fog2
-        : (m_sph2 ? s.fog + extra : s.fog);
-    if constexpr (is_pad(V) || V == VAR_FLAGS) {
-        // the calibration pads over the step's values, live masks and
-        // cell-class masks
-        const float vs[8] = {s.px, s.py, s.pz, s.rx, s.ry, s.rz, wx, wz};
-        const bool ms[8] = {xstep, zstep, term, pgo2, cont2, my2, ymin,
-                            xmin};
-        const bool wallT = term && !sphm;
-        const bool ns[8] = {is_wall, is_tall, is_ramp, is_portal, ft, near,
-                            sphm, wallT};
-        apply_pad<V>(w, vs, s.rx, p2z, ms, ns, opq, nfog, s.tmeta);
-    }
-    const int nld = cont2 ? ldir3 : pgo2 ? j.ldir
-        : m_ryhit ? (ray_y2 < 0.0f ? FYN : FYP)
-        : (m_yhit || m_wall2) ? ldir2 : s.ldir;
-    if (cont2 || pgo2) s.ent = f_next;
-    if (pgo2) s.page = j.dpage;
-    s.px = npx;
-    s.py = npy;
-    s.pz = npz;
-    s.rx = nrx;
-    s.ry = nry;
-    s.rz = nrz;
-    s.wx = nwx;
-    s.wy = nwy;
-    s.wz = nwz;
-    s.ix = nix;
-    s.iz = niz;
-    s.gx = ngx;
-    s.gz = ngz;
-    s.cx = ncx;
-    s.cz = ncz;
-    s.cdist = ncd;
-    s.fog = nfog;
-    s.ldir = nld;
-    s.active = !term;
-
-    // ---- hoisted-sphere line-change bookkeeping ----
-    if (has_sph) {
-        const bool ev_shift = stepped && (tr1 || tr2 || ramp_go)
-            && ((s.sph_dirty >> 1) & 1);
-        const bool drop = (pgo2 || ev_shift) && s.aux_dist != -1.0f
-            && s.cdist < s.aux_t0;
-        s.sph_dirty = pgo2 ? (nr ? 3 : 0)
-            : (ev_shift ? (s.sph_dirty | 1) : s.sph_dirty);
-        if (drop) s.aux_dist = -1.0f;
-    }
-
     // ---- end-of-iteration sphere check ----
     if (s.active && s.aux_dist != -1.0f && s.cdist > fire) {
         s.tmeta = T_SPHERE;
         s.cdist = s.aux_dist;
         s.active = false;
     }
-}
-
-// One DDA step of an active lane, in the instance's mode
-template <bool P, int V, bool T>
-__device__ __forceinline__ void dda_step(const World& w, Seg& s) {
-    if constexpr (P)
-        parity_step<V, T>(w, s);
-    else
-        segment_body<V, T>(w, s);
 }
 
 struct Shade {
@@ -1700,28 +1499,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // Start a segment from origin (fx, fy, fz) along (rx, ry, rz) on `page`:
 // its marching state and, in fast mode, its line's sphere candidates
-// (tracer_core.run_segment's prologue); LAZY: as sphere_all's
-template <bool P, bool T, bool LAZY = false>
+// (tracer_core.run_segment's prologue)
+template <bool P, bool T>
 __device__ __forceinline__ void start(const World& w, const Params& a,
                                       Seg& s, float fx, float fy, float fz,
                                       float rx, float ry, float rz,
                                       int page) {
     init_segment<P, T>(w, s, fx, fy, fz, rx, ry, rz, true, page);
     if (!P && a.n_spheres > 0)
-        s.sph_dirty = sphere_all<LAZY>(w, s, true, false);
+        s.sph_dirty = sphere_all(w, s, true, false);
 }
 
 // March one segment until it terminates or the step budget runs out
 // (tracer_core.run_segment).  profiles(V) returns the terminal step count
 // (tracer_core.py:1436-1456): step + 1 on the step the ray died, maxsteps
-// if the budget ran out; the other instances return 0.  LAZY: start's.
-template <bool P, int V, bool T, bool LAZY = false>
+// if the budget ran out; the other instances return 0.
+template <bool P, int V, bool T>
 __device__ __forceinline__ int march(const World& w, const Params& a,
                                      Seg& s, float fx, float fy, float fz,
                                      float rx, float ry, float rz,
                                      int page) {
     const long long t_march = phase_clock<V>();
-    start<P, T, LAZY>(w, a, s, fx, fy, fz, rx, ry, rz, page);
+    start<P, T>(w, a, s, fx, fy, fz, rx, ry, rz, page);
     int tstep = 0;
     unsigned steps_cycles = 0;     // VAR_PHASES
     for (int step = 0; step < a.maxsteps && s.active; ++step) {
@@ -1838,7 +1637,7 @@ __device__ __forceinline__ void chain_from(const World& w, const Params& a,
         jitter(seed, a.inv_mod, mx, my, mz, rx, ry, rz);
         Seg s;
         for (int k = 1; k <= a.reflect; ++k) {
-            march<P, V, T, true>(w, a, s, fx, fy, fz, rx, ry, rz, page);
+            march<P, V, T>(w, a, s, fx, fy, fz, rx, ry, rz, page);
             const Shade o = shade<P, V>(w, s, icol, seed, a.sec,
                                         k < a.reflect, a.inv_mod, fx, fy,
                                         fz, rx, ry, rz);
@@ -1925,7 +1724,7 @@ __device__ __forceinline__ void fused(const World& w, const Params& a,
     const int n_it = (cap + chunk - 1) / chunk * chunk;
     while (true) {
         for (int segsteps = 0; s.active && f.it < n_it;) {
-            segment_body<V, T>(w, s);
+            dda_step<false, V, T>(w, s);
             ++f.it;
             // the per-segment step budget -> sky (trace.h:247,678)
             if (s.active && ++segsteps >= a.maxsteps) {
@@ -1965,7 +1764,7 @@ __device__ __forceinline__ void trace_ray(const World& w, const Params& a,
         dist0 = f.dist0;
     } else if constexpr (S) {
         Seg s;
-        march<P, V, T, true>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
+        march<P, V, T>(w, a, s, a.ox[i], a.oy[i], a.oz[i], a.dx[i],
                              a.dy[i], a.dz[i], a.page0);
         // the distance now: it need not stay live across the chains
         a.out_dist[i] = s.cdist;

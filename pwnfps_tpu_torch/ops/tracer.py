@@ -25,7 +25,7 @@ knobs, samples > 1, the fused loop) the instance of its structure that
 reads the knobs at run time, `pwnfps_trace_flags` (csrc/tracer_flags.cu).
 `trace_wave_profile` returns the per-wave terminal step counts beside the
 frame, `trace_wave_phases` the phases instance's warp-cycles by region
-(parity mode, one sample).  Every entry takes one argument, the launch's
+(either mode, one sample, unfused).  Every entry takes one argument, the launch's
 fields packed into csrc/tracer_body.cuh's `Args` (`_ARGS`), through the
 port's launch route (`_launch.Entry`); a world's table checks and
 addresses are kept after its first launch.
@@ -93,7 +93,7 @@ LAUNCHES_FLAGS = dict.fromkeys(STRUCTURES, 0)
 RENDERING = ("fast", "paged", "samples", "fused", "parity",
              "parity_samples", "parity_paged")
 LAUNCHES_UNPACKED = dict.fromkeys(RENDERING, 0)
-# the phases instance (VAR_PHASES: parity mode, one sample): its regions
+# the phases instance (VAR_PHASES: either mode, one sample): its regions
 # in the order of its counters (csrc/tracer_body.cuh PH_*), the rows of
 # counters it takes, and its launches
 PHASES = ("prologue", "tile", "march", "steps", "shade", "unwind", "kernel")
@@ -405,16 +405,16 @@ def trace_wave_profile(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
 def trace_wave_phases(wt: TorchWorld, cfg: RenderConfig, ifrom: V3,
                       iray: V3, seed: torch.Tensor, sec, page0: int = 0,
                       width: int | None = None):
-    """trace_wave in parity mode with one sample through the phases
-    instance, CUDA tensors only: (fb int32 [n] BGRA bits, dist [n],
-    cycles int64 [len(PHASES)]), the warps' clock64() cycles in each
+    """trace_wave with one sample, unfused, in either mode, through the
+    phases instance, CUDA tensors only: (fb int32 [n] BGRA bits, dist
+    [n], cycles int64 [len(PHASES)]), the warps' clock64() cycles in each
     region of PHASES, summed over the warps.  A region counts once a warp
     each time the warp runs it (its lowest active lane times it).  The
-    counters slow the kernel; fb and dist are the parity instance's."""
+    counters slow the kernel; fb and dist are the one-chain instance's."""
     check_config(cfg)
-    if not cfg.parity or cfg.samples != 1 or variant(cfg):
-        raise ValueError("the phases instance traces parity mode, one "
-                         "sample, no other measurement instance")
+    if cfg.samples != 1 or takes_fused(cfg) or variant(cfg):
+        raise ValueError("the phases instance traces one sample, unfused, "
+                         "no other measurement instance")
     _check_inputs(wt, ifrom, iray, seed, page0)
     if ifrom.x.device.type != "cuda":
         raise ValueError(f"unsupported device {ifrom.x.device}: the "

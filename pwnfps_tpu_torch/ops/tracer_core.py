@@ -229,10 +229,13 @@ def sphere_rel(wt: TorchWorld, px, pz, vx, vz, page):
 
 
 def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool,
-               math: Math):
+               math: Math, counts: dict | None = None):
     """Fast mode: candidate pass of every sphere against each lane's
     current line, evaluated at the AABB entry point
-    (tracer_core.py:298-534).
+    (tracer_core.py:298-534).  counts, when given, accumulates the
+    `sphere_tests` of the lanes that run the pass (a sphere each) and the
+    `sphere_near` among them whose candidate test can pass (the line
+    ahead within the radius), the only ones whose two roots are read.
     Returns (aux_dist, aux_apos, aux_idx, aux_diff, aux_t0, rel_bit)."""
     aux_dist = s.aux_dist
     zero = torch.zeros_like(s.pos.x)
@@ -267,8 +270,12 @@ def sphere_all(wt: TorchWorld, s: SegState, mask, merge: bool,
         te_d = s.cdist + t_entry
         aux_c = sph_dist + te_d
         fire_c = _max(aux_c, te_d)
-        upd = (base & (dot > 0.0) & (calcrad2 < r[SRAD2])
-               & ((fire_c < fire) | ((fire_c == fire) & (aux_c < best_aux))))
+        near = base & (dot > 0.0) & (calcrad2 < r[SRAD2])
+        if counts is not None:
+            counts["sphere_tests"] += int(base.sum())
+            counts["sphere_near"] += int(near.sum())
+        upd = near & ((fire_c < fire) | ((fire_c == fire)
+                                         & (aux_c < best_aux)))
         fire = torch.where(upd, fire_c, fire)
         best_aux = torch.where(upd, aux_c, best_aux)
         new = new | upd
@@ -513,7 +520,8 @@ def segment_body(wt: TorchWorld, s: SegState, use_skip: bool,
     else:
         refresh = (s.sph_dirty & 1) != 0
         if fire1 or bool((refresh & s.active).any()):
-            a6 = sphere_all(wt, s, refresh, merge=True, math=math)
+            a6 = sphere_all(wt, s, refresh, merge=True, math=math,
+                            counts=counts)
             s = s._replace(aux_dist=a6[0], aux_apos=a6[1], aux_idx=a6[2],
                            aux_diff=a6[3], aux_t0=a6[4],
                            sph_dirty=W_(refresh, a6[5], s.sph_dirty))
@@ -818,8 +826,10 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
 
     counts, when given, accumulates the work these rays needed (what the
     kernel's bound is computed from): `segments` traced, DDA `steps`
-    taken by live lanes, and in parity mode the bucket `slot_tests` and
-    the `slot_hits` among them that run the exact div and sqrt.
+    taken by live lanes, in fast mode the hoisted `sphere_tests` and
+    `sphere_near` (sphere_all), and in parity mode the bucket
+    `slot_tests` and the `slot_hits` among them that run the exact div
+    and sqrt.
 
     With cfg.profile the output's tstep holds each lane's terminal step
     (tracer_core.py:1436-1456): step + 1 on the step the lane died,
@@ -830,7 +840,7 @@ def run_segment(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     s = init_segment(wt, ifrom, iray, active, math, page)
     if hoisted:
         s = _apply_aux(s, sphere_all(wt, s, s.active, merge=False,
-                                     math=math))
+                                     math=math, counts=counts))
     full = s
     idx = torch.nonzero(s.active).flatten()
     s = _tmap(lambda v: v[idx], s)
@@ -970,7 +980,8 @@ class FusedAcc(NamedTuple):
 
 def _process_deaths(wt: TorchWorld, cfg: RenderConfig, math: Math,
                     s: SegState, acc: FusedAcc, sec: float,
-                    hoisted: bool) -> tuple[SegState, FusedAcc]:
+                    hoisted: bool, counts: dict | None = None
+                    ) -> tuple[SegState, FusedAcc]:
     """Shade lanes that died and are not processed yet, then finalize
     each or restart it on its bounce ray (tracer_core._process_deaths).
     Every lane given is such a death: the caller passes those lanes
@@ -1014,7 +1025,8 @@ def _process_deaths(wt: TorchWorld, cfg: RenderConfig, math: Math,
         aux_diff=W_(bounce, z1, s.aux_diff), tmeta=torch.zeros_like(s.tmeta))
     if hoisted:
         # the new line's candidates now: the lane steps this iteration
-        aux = sphere_all(wt, s, bounce, merge=False, math=math)
+        aux = sphere_all(wt, s, bounce, merge=False, math=math,
+                         counts=counts)
         s = _apply_aux(s, aux[:5] + (W_(bounce, aux[5], s.sph_dirty),))
     acc = FusedAcc(
         wave=W_(bounce, acc.wave + 1, acc.wave).to(I32),
@@ -1043,7 +1055,7 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     the unfused trace; colours agree to ~1 ulp, the forward affine
     associating the reflectance products differently.  The loop works on
     the lanes whose colour is not final, compacting them as they finish.
-    counts: as run_segment's (segments, steps).  Returns (col C4, dist).
+    counts: as run_segment's.  Returns (col C4, dist).
     """
     hoisted = wt.n_spheres > 0
     use_skip = cfg.space_skip and wt.skip_ok
@@ -1053,7 +1065,7 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
     s = init_segment(wt, ifrom, iray, one > 0.0, math, page)
     if hoisted:
         s = _apply_aux(s, sphere_all(wt, s, s.active, merge=False,
-                                     math=math))
+                                     math=math, counts=counts))
     acc = FusedAcc(wave=zi, segsteps=zi, done=zi != 0, seed=seed,
                    icol=C4(one, one, one, one),
                    acc_a=C4(zero, zero, zero, zero), acc_b=one,
@@ -1072,7 +1084,7 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
         d = torch.nonzero(dead).flatten()
         s_d, acc_d = _process_deaths(
             wt, cfg, math, _tmap(lambda v: v[d], s),
-            _tmap(lambda v: v[d], acc), sec, hoisted)
+            _tmap(lambda v: v[d], acc), sec, hoisted, counts)
         if counts is not None:
             counts["segments"] += int(s_d.active.sum())
         return (_tmap2(lambda f, v: f.index_copy(0, d, v), s, s_d),
@@ -1101,7 +1113,8 @@ def run_fused(wt: TorchWorld, cfg: RenderConfig, math: Math, ifrom: V3,
         was = s.active
         if counts is not None:
             counts["steps"] += int(was.sum())
-        s = segment_body(wt, s, use_skip, hoisted, math, probe=cfg.probe)
+        s = segment_body(wt, s, use_skip, hoisted, math, counts,
+                         cfg.probe)
         segsteps = torch.where(was, acc.segsteps + 1, acc.segsteps)
         # the per-segment step budget -> sky (trace.h:247,678)
         over = s.active & (segsteps >= cfg.maxsteps)

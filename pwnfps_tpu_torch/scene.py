@@ -316,13 +316,19 @@ def ring_scene(width: int = 1280, height: int = 720, device="cuda",
 
 
 def maze_scene(width: int = 1280, height: int = 720, device="cuda",
-               seed: int = 7, **cfg_kw) -> Scene:
+               seed: int = 7, pages: int = 4, view: str = "path",
+               **cfg_kw) -> Scene:
     """BASELINE config #3's frame (configs.py:175-222: the paged sector
     maze, one sphere of radius 0.25 and reflectance 0.5 on the spawn
     page, fast mode with the empty-space skip) at width x height on
-    `device`; cfg_kw override RenderConfig fields (parity=True: the
-    same world and camera in parity mode)."""
-    words, info = generate_sector_maze(seed=seed)
+    `device`; pages: the atlas's pages (config #3 has 4); view: "path",
+    config #3's camera at the spawn point, or "portal", the camera
+    facing the first cross-page portal (portal_camera); cfg_kw override
+    RenderConfig fields (parity=True: the same world and camera in
+    parity mode)."""
+    if view not in ("path", "portal"):
+        raise ValueError(f"unknown maze view {view!r}")
+    words, info = generate_sector_maze(seed=seed, pages=pages)
     sp, sx, sz = info["spawn"]
     pool = ObjectPool()
     i = pool.obj_new()
@@ -334,9 +340,12 @@ def maze_scene(width: int = 1280, height: int = 720, device="cuda",
                        **{"parity": False, "cam_page": sp, **cfg_kw})
     cam = mat4_identity()
     cam[3, :3] = (sx + 0.5, 0.5, sz + 0.5)
-    return Scene(world=world, meta=meta,
-                 tworld=world_to_torch(world, meta, device), cfg=cfg,
-                 cam=cam, yaw_step=0.05, sec_step=0.016)
+    sc = Scene(world=world, meta=meta,
+               tworld=world_to_torch(world, meta, device), cfg=cfg,
+               cam=cam, yaw_step=0.05, sec_step=0.016)
+    if view == "portal":
+        sc.cam = portal_camera(sc)
+    return sc
 
 
 def cross_page_portals(world: W.WorldDev, page: int):

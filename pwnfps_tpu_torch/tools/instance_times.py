@@ -1,5 +1,7 @@
-"""Every rendering instance of the tracer kernel and every form of the
-blur kernel, held against their plain versions and timed on the card.
+"""Every rendering instance of the tracer kernel, two of its measurement
+instances (profile, with its per-wave step counts written, and fire1)
+and every form of the blur kernel, held against their plain versions
+and timed on the card.
 
 Traces one frame of each case (chip_smoke's scenes and shapes; frame 0
 but where the case names another) through
@@ -65,11 +67,14 @@ BLUR_REPS = 100        # blur launches a reading (band cases: 8 each)
 ISSUE_N = 100          # calls a host-issue reading times
 ISSUE_ROUNDS = 3       # readings a function; the least is kept
 ISSUE_T = 20000        # vpu_chains iterations (fma, S=16, a block an SM)
+
+
 # name: (scene builder, width, height, keyword arguments, frame)
 CASES = {
     "flagship_1080": (S.flagship_scene, 1920, 1080, {}, 0),
     "stress_720": (S.stress_scene, 1280, 720, {}, 0),
     "maze_720": (S.maze_scene, 1280, 720, {}, 0),
+    "maze_720_portal": (S.maze_scene, 1280, 720, {"view": "portal"}, 0),
     "maze_samples_160x90": (S.maze_scene, 160, 90, {"samples": 2}, 0),
     "ptrace_1080": (S.ptrace_scene, 1920, 1080, {}, 0),
     "fused_1080": (S.flagship_scene, 1920, 1080, {"fused": True}, 0),
@@ -82,6 +87,9 @@ CASES = {
     "parity_ptrace_1080": (S.ptrace_scene, 1920, 1080, {"parity": True}, 0),
     "maze_parity_720": (S.maze_scene, 1280, 720, {"parity": True}, 0),
     "multicam": None,
+    # measurement instances on the flagship frame (chip_smoke phase 17)
+    "profile_1080": (S.flagship_scene, 1920, 1080, {"profile": True}, 0),
+    "fire1_1080": (S.flagship_scene, 1920, 1080, {"probe": "fire1"}, 0),
 }
 # blur case: (tracer case whose kernel frame it blurs, frame_h or None);
 # band_1080 blurs the flagship's frame 3 in 8 bands
@@ -106,7 +114,13 @@ def case_inputs(name: str, dev) -> tuple:
             pixel_seeds(mc.cfg.width, mc.cfg.height, dev))
         return mc.tworld, mc.cfg, ifrom, rays, seeds, sec, mc.cfg.cam_page
     make, w, h, kw, k = CASES[name]
+    # the portal view through scene.portal_camera, which every version
+    # of the port has (an older tree's maze_scene takes no `view`)
+    kw = dict(kw)
+    view = kw.pop("view", "path")
     sc = make(w, h, dev, **kw)
+    if view == "portal":
+        sc.cam = S.portal_camera(sc)
     origin, rayb, rdx, rdy, sec = sc.frame_args(k)
     ifrom, rays, seeds = frame_rays(sc.cfg, origin, rayb, rdx, rdy, dev)
     return sc.tworld, sc.cfg, ifrom, rays, seeds, sec, sc.cfg.cam_page
@@ -324,6 +338,9 @@ def main(argv=None) -> int:
         wt, cfg, ifrom, rays, seeds, sec, page0 = cases[c]
 
         def launch():
+            if cfg.profile:
+                return tracer.trace_wave_profile(wt, cfg, ifrom, rays, seeds,
+                                                 sec, page0=page0)[:2]
             return tracer.trace_wave(wt, cfg, ifrom, rays, seeds, sec,
                                      pack=True, page0=page0)
         fb, z = launch()

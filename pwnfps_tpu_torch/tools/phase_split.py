@@ -1,16 +1,19 @@
-"""Where a parity frame's kernel time goes: the phases instance's clock64()
-counters (ops/tracer.trace_wave_phases) by region.
+"""Where a frame's kernel time goes: the phases instance's clock64()
+counters (ops/tracer.trace_wave_phases) by region, in parity or fast
+mode.
 
     python -m pwnfps_tpu_torch.tools.phase_split [--cases NAME ...]
 
-Each case's frame is traced through the parity instance and through the
-phases instance, which is the same kernel with counters around its
-regions (csrc/tracer_body.cuh VAR_PHASES); their bits must agree.  The
+Each case's frame is traced through its one-chain instance (parity, or
+fast mode's one-page or paged one) and through the phases instance,
+which is the same kernel with counters around its regions
+(csrc/tracer_body.cuh VAR_PHASES); their bits must agree.  The
 counters are warp-cycles: a region counts once a warp each time the warp
 runs it, whichever lanes take it.  Printed, a JSON line a case: both
-instances' ms (the counters' cost), the raw cycles, and the shares of the
-warps' kernel cycles: the DDA steps (the bucket scan and its slot hits'
-root and quotient included), the rest of the march (segment starts,
+instances' ms ("kernel" and "phases": the counters' cost), the raw
+cycles, and the shares of the warps' kernel cycles: the DDA steps
+(parity mode's bucket scan and its slot hits' root and quotient, fast
+mode's sphere refresh included), the rest of the march (segment starts,
 the step loop and the step counter), shading, unwind, the rest of a
 tile's trace (the ray's loads, records, the pack), the block's prologue
 and what lies between (a warp's start and end around its tile).  Needs
@@ -30,6 +33,10 @@ CASES = {
     "parity_1080_f2": ("parity_scene", 1920, 1080, {}, 2),
     "maze_parity_720": ("maze_scene", 1280, 720, {"parity": True}, 0),
     "parity_240": ("parity_scene", 320, 240, {}, 0),
+    "maze_720": ("maze_scene", 1280, 720, {}, 0),
+    "maze_720_portal": ("maze_scene", 1280, 720, {"view": "portal"}, 0),
+    "maze_160x90": ("maze_scene", 160, 90, {}, 0),
+    "flagship_1080": ("flagship_scene", 1920, 1080, {}, 0),
 }
 REPS = 5
 
@@ -69,19 +76,19 @@ def main(argv=None) -> int:
         call = (sc.tworld, sc.cfg, ifrom, rays, seeds, sec)
         page0 = sc.cfg.cam_page
 
-        def plain_instance():
+        def one_chain():
             return tracer.trace_wave(*call, pack=True, page0=page0)
 
         def phases_instance():
             return tracer.trace_wave_phases(*call, page0=page0)
 
-        fb, dist = plain_instance()
+        fb, dist = one_chain()
         fb_p, dist_p, _ = phases_instance()
         if not (torch.equal(fb, fb_p) and torch.equal(
                 dist.view(torch.int32), dist_p.view(torch.int32))):
             raise RuntimeError(f"{name}: the phases instance's bits differ")
         ms = {}
-        for label, fn in (("parity", plain_instance),
+        for label, fn in (("kernel", one_chain),
                           ("phases", phases_instance)):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

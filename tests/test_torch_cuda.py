@@ -752,6 +752,31 @@ def test_samples_instances_on_the_paged_maze(dev, parity):
     assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
 
 
+@pytest.mark.parametrize("w,h,width", [(33, 17, None), (7, 5, None),
+                                       (1, 1, None), (33, 17, 34)])
+@pytest.mark.parametrize("pages", [2, 4, 12])
+def test_paged_fast_instance_on_atlases(dev, pages, w, h, width):
+    """The paged fast instance (trace_kernel<false, false, false, 0,
+    false>, which fast mode launches for every world of more than one
+    page) on sector-maze atlases of 2, 4 (config #3) and 12 pages from
+    the portal camera, at ragged 8x4 tiles (33x17), 7x5, one ray and,
+    where the width does not divide n, in runs of 32 rays: one paged
+    launch, bit-equal to the plain tracer."""
+    sc = maze_scene(w, h, dev, pages=pages)
+    sc.cam = portal_camera(sc)
+    assert sc.tworld.n_pages == pages
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    page0 = sc.cfg.cam_page
+    before = tracer.LAUNCHES_PAGED
+    fb_k, z_k = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  sec, pack=True, page0=page0, width=width)
+    assert tracer.LAUNCHES_PAGED == before + 1
+    fb_p, z_p = tracer.trace_wave_plain(sc.tworld, sc.cfg, ifrom, rays,
+                                        seeds, sec, pack=True, page0=page0)
+    assert torch.equal(fb_k, fb_p)
+    assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+
+
 def test_side_stream_and_graph_capture(dev):
     """Every launch route on a side stream and captured into a CUDA
     graph (the capture stream): add_one, dof_blur, and trace_wave in
@@ -889,7 +914,8 @@ def test_unwind_records_off_the_stack(dev):
     the device sinf/cosf reserve for their large-argument reduction, and
     the nowater instance, which calls neither, no stack frame at all; the
     fused instance, in its 128-thread blocks, spills nothing; the
-    flagship launch keeps 20 warps an SM resident."""
+    flagship launch keeps 24 warps an SM resident (two blocks of 384
+    threads)."""
     _build.build_all(["tracer", "tracer_variants"])
     frame, st, ld = _frame_line(_build.PTXAS_LOG["tracer"],
                                 "ILb0ELb0ELb0ELi0ELb1EE")
@@ -904,7 +930,7 @@ def test_unwind_records_off_the_stack(dev):
     assert nowater == (0, 0, 0), nowater
     shape = tracer.launch_shape(flagship_scene(8, 8, dev).cfg, 1920 * 1080,
                                 1920, 1, dev)
-    assert shape["blocks_per_sm"] * shape["threads"] == 20 * 32, shape
+    assert shape["blocks_per_sm"] * shape["threads"] == 24 * 32, shape
 
 
 def _registers(log: str, tag: str) -> int:
@@ -921,17 +947,19 @@ def _registers(log: str, tag: str) -> int:
 
 # The rendering instances with S = false (one chain a ray), as ptxas
 # reported them (nvcc 12.8 for sm_90a; registers, stack frame, spill
-# stores, spill loads): the fast and fused lines as before the samples
-# instances' redesign, which kept their code; the parity lines since the
-# parity instances' redesign (parity_step, 448-thread blocks under
-# __launch_bounds__(448, 2): at most 72 registers), with no spill.
+# stores, spill loads), since both modes step through one function with
+# one branch an outcome (step_core) and fast mode takes its sphere roots
+# lazily: the fast instances in 384-thread blocks under
+# __launch_bounds__(384, 2) (at most 80 registers), the fused loop's
+# 128-thread ones, the parity instances' 448-thread ones (at most 72);
+# no spill.
 ONE_CHAIN_PTXAS = {
-    "ILb0ELb0ELb0ELi0ELb1EE": (92, 32, 0, 0),      # fast, one page
-    "ILb0ELb0ELb0ELi0ELb0EE": (92, 32, 0, 0),      # fast, paged
-    "ILb0ELb0ELb1ELi0ELb1EE": (116, 32, 0, 0),     # fused, one page
-    "ILb0ELb0ELb1ELi0ELb0EE": (114, 32, 0, 0),     # fused, paged
-    "ILb1ELb0ELb0ELi0ELb1EE": (70, 0, 0, 0),       # parity, one page
-    "ILb1ELb0ELb0ELi0ELb0EE": (70, 0, 0, 0),       # parity, paged
+    "ILb0ELb0ELb0ELi0ELb1EE": (79, 32, 0, 0),      # fast, one page
+    "ILb0ELb0ELb0ELi0ELb0EE": (79, 32, 0, 0),      # fast, paged
+    "ILb0ELb0ELb1ELi0ELb1EE": (91, 32, 0, 0),      # fused, one page
+    "ILb0ELb0ELb1ELi0ELb0EE": (87, 32, 0, 0),      # fused, paged
+    "ILb1ELb0ELb0ELi0ELb1EE": (67, 0, 0, 0),       # parity, one page
+    "ILb1ELb0ELb0ELi0ELb0EE": (67, 0, 0, 0),       # parity, paged
 }
 
 
@@ -1054,7 +1082,32 @@ def test_phases_instance_matches_parity(dev, world):
     assert c["kernel"] >= c["prologue"] + c["tile"], c
     with pytest.raises(ValueError):
         tracer.trace_wave_phases(sc.tworld, dataclasses.replace(
-            sc.cfg, parity=False), *call[2:], page0=page0)
+            sc.cfg, samples=2), *call[2:], page0=page0)
+
+
+@pytest.mark.parametrize("world", ["one_page", "paged"])
+def test_fast_phases_instance_matches_kernel(dev, world):
+    """Fast mode's phases instance gives the bits of the one-chain fast
+    instance of its world (one page: the flagship; paged: the maze from
+    its portal camera) and counts cycles in every region; the fused
+    loop has none."""
+    if world == "one_page":
+        sc = flagship_scene(96, 64, dev)
+    else:
+        sc = maze_scene(96, 54, dev)
+        sc.cam = portal_camera(sc)
+    ifrom, rays, seeds, sec = _frame_inputs(sc, 0, dev)
+    call = (sc.tworld, sc.cfg, ifrom, rays, seeds, sec)
+    page0 = sc.cfg.cam_page
+    fb_q, z_q, cycles = tracer.trace_wave_phases(*call, page0=page0)
+    fb_k, z_k = tracer.trace_wave(*call, pack=True, page0=page0)
+    assert torch.equal(fb_q, fb_k)
+    assert torch.equal(z_q.view(torch.int32), z_k.view(torch.int32))
+    c = dict(zip(tracer.PHASES, cycles.tolist()))
+    assert all(v > 0 for v in c.values()), c
+    with pytest.raises(ValueError):
+        tracer.trace_wave_phases(sc.tworld, dataclasses.replace(
+            sc.cfg, fused=True), *call[2:], page0=page0)
 
 
 # the rendering instances and their scenes, for the unpacked colour
@@ -1187,36 +1240,40 @@ def test_flag_instances_match_plain(dev, combo):
 
 
 # The new measurement instances, as ptxas reported them (nvcc 12.8 for
-# sm_90a; registers, stack frame, spill stores, spill loads): parity
-# mode's one-knob instances (448 x 2 blocks: at most 72 registers) by
-# VAR_*, and the run-time-flag instances (VAR_FLAGS = 12) by <P, S, F>,
-# one page and paged alike.
-PARITY_VARIANT_PTXAS = {1: (70, 0, 0, 0), 2: (72, 32, 0, 0),
-                        3: (70, 0, 0, 0), 4: (70, 0, 0, 0),
-                        5: (72, 24, 32, 24), 6: (72, 0, 0, 0),
-                        7: (72, 24, 32, 24), 8: (72, 0, 0, 0),
-                        9: (72, 0, 0, 0), 10: (72, 24, 32, 24)}
-FLAGS_PTXAS = {"ILb0ELb0ELb0ELi12E": (94, 64, 0, 0),
-               "ILb0ELb1ELb0ELi12E": (96, 56, 28, 20),
-               "ILb0ELb0ELb1ELi12E": (102, 32, 0, 0),
-               "ILb1ELb0ELb0ELi12E": (72, 64, 40, 48),
-               "ILb1ELb1ELb0ELi12E": (96, 0, 0, 0)}
+# sm_90a; registers, stack frame, spill stores, spill loads), since the
+# one-branch step and the fast one-chain instances' 384-thread blocks:
+# parity mode's one-knob instances (448 x 2 blocks: at most 72
+# registers) by VAR_*, and the run-time-flag instances (VAR_FLAGS = 12)
+# by <P, S, F> (fast one chain 384 x 2: at most 80; the fast ones with
+# fire1's refresh taking every sphere's roots), each (one page, paged).
+PARITY_VARIANT_PTXAS = {1: ((67, 0, 0, 0),) * 2,
+                        2: ((70, 32, 0, 0), (71, 32, 0, 0)),
+                        3: ((68, 0, 0, 0),) * 2, 4: ((67, 0, 0, 0),) * 2,
+                        5: ((72, 16, 24, 16),) * 2, 6: ((72, 0, 0, 0),) * 2,
+                        7: ((72, 16, 24, 16),) * 2, 8: ((71, 0, 0, 0),) * 2,
+                        9: ((71, 0, 0, 0),) * 2,
+                        10: ((72, 16, 24, 16),) * 2}
+FLAGS_PTXAS = {"ILb0ELb0ELb0ELi12E": ((80, 80, 28, 36), (80, 96, 32, 40)),
+               "ILb0ELb1ELb0ELi12E": ((96, 40, 8, 8), (96, 48, 20, 16)),
+               "ILb0ELb0ELb1ELi12E": ((100, 32, 0, 0), (99, 32, 0, 0)),
+               "ILb1ELb0ELb0ELi12E": ((72, 64, 36, 44),) * 2,
+               "ILb1ELb1ELb0ELi12E": ((96, 0, 0, 0),) * 2}
 
 
 def test_new_measurement_instances_compile_as_recorded(dev):
     _build.build_all(["tracer_parity_variants", "tracer_flags"])
     log = _build.PTXAS_LOG["tracer_parity_variants"]
     for v, want in PARITY_VARIANT_PTXAS.items():
-        for t in (0, 1):
+        for t in (1, 0):
             tag = f"ILb1ELb0ELb0ELi{v}ELb{t}EE"
-            assert (_registers(log, tag), *_frame_line(log, tag)) == want, \
-                tag
+            assert (_registers(log, tag), *_frame_line(log, tag)) \
+                == want[1 - t], tag
     log = _build.PTXAS_LOG["tracer_flags"]
     for tag, want in FLAGS_PTXAS.items():
-        for t in (0, 1):
+        for t in (1, 0):
             got = (_registers(log, f"{tag}Lb{t}EE"),
                    *_frame_line(log, f"{tag}Lb{t}EE"))
-            assert got == want, tag
+            assert got == want[1 - t], tag
 
 
 @pytest.mark.parametrize("parity", [False, True])
