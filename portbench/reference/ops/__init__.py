@@ -1,0 +1,1 @@
+"""Part of the frozen reference (see portbench/reference/__init__.py)."""
