@@ -1,5 +1,6 @@
-// What csrc/tracer_body.cuh and csrc/blur.cu take from the CUDA runtime,
-// for a host C++ compiler (tools/host_trace.py, tools/host_blur.py): the
+// What csrc/tracer_body.cuh, csrc/blur.cu and csrc/rays.cu take from the
+// CUDA runtime, for a host C++ compiler (tools/host_trace.py,
+// tools/host_blur.py, tools/host_rays.py): the
 // qualifiers vanish, the intrinsics become their host meaning (the _rn
 // arithmetic the host's IEEE round-to-nearest-even operations, built
 // with no contraction; __float2int_rz saturating as cvt.rzi does: NaN to
@@ -34,6 +35,12 @@ struct dim3 {
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 extern dim3 threadIdx, blockIdx, blockDim, gridDim;
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+    return float4{x, y, z, w};
+}
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 cudaError_t cudaGetDevice(int*);
 cudaError_t cudaGetLastError();
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int);

@@ -41,7 +41,7 @@ from ..ops.tracer import trace_wave
 from ..ops.vec import V3
 from ..ops.world import TorchWorld, world_to_torch
 from ..ops.worlddev import WorldMeta
-from ..render.frame import _vec3, gen_rays, pixel_seeds
+from ..render.frame import _vec3, frame_rays, pixel_seeds
 
 F32 = np.float32
 AXES = ("cam", "px")
@@ -450,21 +450,20 @@ def _render_frame_mesh_banded(tws: dict, cfg: RenderConfig, mesh: Mesh,
 def _render_frame_mesh(tws: dict, cfg: RenderConfig, mesh: Mesh, origin,
                        rayb, rdx, rdy, sec):
     """The flat path (sharding.py:475-527) with (bh, bw) = (1, w): the
-    row-major ray batch, padded with dead rays to a multiple of
-    w * mesh.size, is split into one contiguous slice a device and
-    traced there (one launch each); the gathered frame is blurred over
+    row-major ray batch (render.frame.frame_rays on mesh.flat[0], one
+    launch of the ray kernel on a card), padded with dead rays to a
+    multiple of w * mesh.size, is split into one contiguous slice a
+    device and traced there (one launch each); the gathered frame is
+    blurred over
     the mesh in _dof_blur_mesh's own bands.  Returns (fb [h, w], zbuf
     [h, w]) on mesh.flat[0]."""
     h, w = cfg.height, cfg.width
     n = h * w
     dev0 = mesh.flat[0]
-    rays = gen_rays(_vec3(rayb, dev0), _vec3(rdx, dev0), _vec3(rdy, dev0),
-                    w, h)
-    o = _vec3(origin, dev0)
+    ifrom, rays, seeds = frame_rays(cfg, origin, rayb, rdx, rdy, dev0)
     npad2 = -(-h // mesh.size) * mesh.size * w
     cols = [_pad_flat(a, npad2, fill) for a, fill in zip(
-        (*(o[i].expand(n) for i in range(3)), *rays,
-         pixel_seeds(w, h, dev0)), _FILLS.values())]
+        (*ifrom, *rays, seeds), _FILLS.values())]
     fbs, zbs = _trace_split(tws, cfg, mesh, cols, sec)
     fb, zb = fbs[:n].reshape(h, w), zbs[:n].reshape(h, w)
     if cfg.postproc_blur:

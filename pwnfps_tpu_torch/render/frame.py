@@ -1,22 +1,26 @@
 """Frame renderer (pwnfps_tpu/render/frame.py).
 
 ray gen -> multi-bounce trace with in-kernel BGRA8 pack -> DoF blur.
-On CUDA tensors the trace and the blur are one kernel launch each
-(ops/tracer.py, ops/blur.py); on CPU tensors both take their plain
-torch versions.  Fast mode and parity mode (`cfg.parity`) on one page;
-fast mode on a paged world, every primary ray starting on
-`cfg.cam_page`.  `render_accumulated` is the multi-sample frame
-(BASELINE config #5), in either mode: the trace averages `samples`
-bounce chains a pixel in the same one launch.
+On a CUDA device each of the three is one kernel launch (csrc/rays.cu
+through `frame_rays`, ops/tracer.py, ops/blur.py), and a frame waits
+on no stream synchronisation; on the CPU all three take their plain torch
+versions (`gen_rays`, `pixel_seeds`, the origin broadcast).  Fast mode
+and parity mode (`cfg.parity`) on one page; fast mode on a paged world,
+every primary ray starting on `cfg.cam_page`.  `render_accumulated` is
+the multi-sample frame (BASELINE config #5), in either mode: the trace
+averages `samples` bounce chains a pixel in the same one launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import struct
 
 import numpy as np
 import torch
 
+from .._launch import Entry
 from ..core import lcg
 from ..core.config import RenderConfig
 from ..ops.blur import dof_blur
@@ -24,6 +28,15 @@ from ..ops.tracer import trace_wave
 from ..ops.vec import V3
 from ..ops.world import TorchWorld
 from ..ops.worlddev import WorldMeta
+
+# launches of csrc/rays.cu's kernel since import (reset by callers that
+# count): one a frame_rays call on a CUDA device, none on the CPU
+LAUNCHES_RAYS = 0
+# csrc/rays.cu's C entry, taking one packed argument, its RayArgs: the 7
+# output addresses (origin x, y, z, direction x, y, z, seed), n, width,
+# height, parity, and the 12 floats of origin, rayb, rdx and rdy
+_RAY_ARGS = struct.Struct("=7Q4i12f")
+_RAYS = Entry("rays", "pwnfps_frame_rays", [ctypes.c_char_p])
 
 
 def gen_rays(rayb, rdx, rdy, width: int, height: int,
@@ -74,9 +87,53 @@ def _vec3(v, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
 
+def _host_f32(v) -> np.ndarray:
+    """A camera vector as float32 [3] on the host; a CUDA tensor is read
+    back, which synchronises."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+    return np.asarray(v, np.float32).reshape(3)
+
+
+def ray_args(cfg: RenderConfig, origin, rayb, rdx, rdy, outs) -> bytes:
+    """csrc/rays.cu's RayArgs for cfg's frame: outs the 7 output
+    addresses, the camera vectors passed by value."""
+    cam = np.concatenate([_host_f32(v) for v in (origin, rayb, rdx, rdy)])
+    return _RAY_ARGS.pack(*outs, cfg.width * cfg.height, cfg.width,
+                          cfg.height, int(cfg.parity), *cam.tolist())
+
+
+def _launch_rays(cfg: RenderConfig, origin, rayb, rdx, rdy,
+                 device: torch.device):
+    global LAUNCHES_RAYS
+    n = cfg.width * cfg.height
+    planes = torch.empty((6, n), dtype=torch.float32,
+                         device=device).unbind(0)
+    seeds = torch.empty(n, dtype=torch.int32, device=device)
+    outs = [t.data_ptr() for t in (*planes, seeds)]
+    _RAYS(seeds.get_device(), ray_args(cfg, origin, rayb, rdx, rdy, outs))
+    LAUNCHES_RAYS += 1
+    return V3(*planes[:3]), V3(*planes[3:]), seeds
+
+
 def frame_rays(cfg: RenderConfig, origin, rayb, rdx, rdy, device):
     """(ifrom V3, rays V3, seeds int32) of a frame's h*w primary rays on
-    `device`: the camera origin, gen_rays and pixel_seeds."""
+    `device`: the camera origin broadcast, gen_rays and pixel_seeds.  On
+    a CUDA device one launch of csrc/rays.cu's kernel writes all seven
+    planes, bit-equal to the plain functions, with the camera vectors
+    passed by value: no copy to the device and no synchronisation, but
+    for a camera vector that is a CUDA tensor, which is read to the host
+    first (that synchronises).  On the CPU the plain functions run."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _launch_rays(cfg, origin, rayb, rdx, rdy, device)
+    return frame_rays_plain(cfg, origin, rayb, rdx, rdy, device)
+
+
+def frame_rays_plain(cfg: RenderConfig, origin, rayb, rdx, rdy, device):
+    """frame_rays by the plain functions on any device (gen_rays,
+    pixel_seeds, the origin broadcast): the CPU path, and the
+    counterpart the ray kernel is held against on the card."""
     h, w = cfg.height, cfg.width
     rays = gen_rays(_vec3(rayb, device), _vec3(rdx, device),
                     _vec3(rdy, device), w, h, cfg.parity)
@@ -89,7 +146,9 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
                  origin, rayb, rdx, rdy, sec):
     """-> (framebuffer [h, w] int32 holding uint32 BGRA, zbuf [h, w] f32),
     on the world's device.  origin/rayb/rdx/rdy: float32 [3] (numpy or
-    tensors, as render/camera.camera_vectors gives them); sec: the clock.
+    tensors, as render/camera.camera_vectors gives them; on a CUDA device
+    numpy, or CPU tensors, keep the frame free of synchronisation, see
+    frame_rays); sec: the clock.
     """
     if not 0 <= cfg.cam_page < meta.n_pages:
         raise ValueError(f"cam_page {cfg.cam_page} is not a page of a "

@@ -211,10 +211,10 @@ def queued_ms(fn, dev, n: int = BLUR_REPS) -> float:
     return start.elapsed_time(end) / n
 
 
-def kernel_us(fn, n: int = 20) -> float | None:
-    """Mean device duration in us of the blur kernels fn launches, from
-    a torch.profiler trace of n calls (None where the trace shows no
-    device time)."""
+def kernel_us(fn, n: int = 20, name: str = "blur") -> float | None:
+    """Mean device duration in us of the kernels fn launches whose name
+    holds `name` (the blur's by default), from a torch.profiler trace of
+    n calls (None where the trace shows no device time)."""
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -228,7 +228,7 @@ def kernel_us(fn, n: int = 20) -> float | None:
     tot, cnt = 0.0, 0
     for e in prof.events():
         dt = getattr(e, "device_type", None)
-        if "blur" in e.name and dt is not None and "CUDA" in str(dt):
+        if name in e.name and dt is not None and "CUDA" in str(dt):
             tot += e.time_range.elapsed_us()
             cnt += 1
     return tot / cnt if cnt else None

@@ -56,7 +56,10 @@ samples 2 and the fused loop and several at once (the instances that
 read their knobs at run time) equal plain; the new instances compile to
 the registers and spills recorded for them; shard_trace's parts equal
 trace_wave; the generated cave level's frame equals plain in both
-modes."""
+modes.  The frame's rays (csrc/rays.cu through frame_rays, one launch)
+equal the plain path's bits in both modes at 1080p, 320x240, 203x150
+and 1x1, and a frame in either mode, with one sample or four, calls no
+stream synchronisation."""
 
 import dataclasses
 import re
@@ -72,7 +75,8 @@ from pwnfps_tpu_torch.parallel.sharding import (_halo, camera_rays,
                                                 render_cameras,
                                                 render_frame_sharded,
                                                 shard_trace)
-from pwnfps_tpu_torch.render.frame import (gen_rays, pixel_seeds,
+from pwnfps_tpu_torch.render import frame as frame_mod
+from pwnfps_tpu_torch.render.frame import (frame_rays, gen_rays, pixel_seeds,
                                            render_accumulated, render_frame)
 from pwnfps_tpu_torch.ops.tracer_core import col_ftoint
 from pwnfps_tpu_torch.scene import (cave_scene, flagship_scene, fuzz_rays,
@@ -406,15 +410,17 @@ def test_band_blur_kernel_equals_plain(dev, h, w, hb, cl):
 @pytest.mark.parametrize("h", [64, 40])
 def test_sharded_frame_equals_render_frame(dev, h):
     """96x64 bands (8 rows a device), 96x40 takes the flat path: 8 trace
-    and 8 band blur launches a frame either way, no frame blur."""
+    and 8 band blur launches a frame either way, no frame blur; the flat
+    path's rays are one ray kernel launch, the bands build their own."""
     sc = flagship_scene(96, h, dev)
     args = sc.frame_args(2)
-    before = (_counts(), blur.LAUNCHES_BAND)
+    before = (_counts(), blur.LAUNCHES_BAND, frame_mod.LAUNCHES_RAYS)
     fb, zb = render_frame_sharded(sc.tworld, sc.meta, sc.cfg, *args,
                                   mesh_for(2, 4, dev))
     torch.cuda.synchronize()
-    assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1]) == (
-        (8, 0, 0, 0, 0, 0, 0, 0, 0), 8)
+    assert (_delta(before[0]), blur.LAUNCHES_BAND - before[1],
+            frame_mod.LAUNCHES_RAYS - before[2]) == (
+        (8, 0, 0, 0, 0, 0, 0, 0, 0), 8, int(h == 40))
     fb1, zb1 = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
     assert torch.equal(fb, fb1)
     assert torch.equal(zb.view(torch.int32), zb1.view(torch.int32))
@@ -1315,3 +1321,65 @@ def test_cave_frame_matches_plain(dev, parity):
     assert (getattr(tracer, counter), blur.LAUNCHES) == (before[0] + 1,
                                                          before[1] + 1)
     assert int(torch.unique(fb).numel()) > 100
+
+
+@pytest.mark.parametrize("parity", [False, True])
+@pytest.mark.parametrize("w,h", [(1920, 1080), (320, 240), (203, 150),
+                                 (1, 1)])
+def test_ray_kernel_equals_plain(dev, w, h, parity):
+    """frame_rays on the card, one launch of csrc/rays.cu's kernel, against
+    the plain path on the CPU (gen_rays, pixel_seeds, the origin
+    broadcast), all seven planes bit for bit, on three poses of the
+    flagship camera path; 203 is a multiple of neither 32 nor 8."""
+    sc = flagship_scene(w, h, "cpu")
+    cfg = dataclasses.replace(sc.cfg, parity=parity)
+    for k in (0, 3, 7):
+        args = sc.frame_args(k)[:4]
+        before = frame_mod.LAUNCHES_RAYS
+        got = frame_rays(cfg, *args, dev)
+        assert frame_mod.LAUNCHES_RAYS == before + 1
+        want = frame_rays(cfg, *args, "cpu")
+        for g, p in zip((*got[0], *got[1], got[2]),
+                        (*want[0], *want[1], want[2])):
+            assert g.device == dev and g.shape == (w * h,)
+            assert torch.equal(g.cpu().view(torch.int32),
+                               p.view(torch.int32)), k
+
+
+@pytest.mark.parametrize("scene", ["flagship", "parity", "ptrace",
+                                   "parity_ptrace"])
+def test_frames_never_synchronise(dev, scene):
+    """render_frame (fast, parity) and render_accumulated (samples 4, fast
+    and parity) call no stream synchronisation once a frame of the
+    shape has run (the first uploads the blur's tables): torch's sync
+    debug mode "error" raises on one.  Each frame launches the ray kernel
+    once and equals the tracer and the blur run on the plain path's rays."""
+    sc = {"flagship": lambda: flagship_scene(128, 72, dev),
+          "parity": lambda: parity_scene(128, 72, dev),
+          "ptrace": lambda: ptrace_scene(128, 72, dev),
+          "parity_ptrace": lambda: ptrace_scene(128, 72, dev,
+                                                parity=True)}[scene]()
+
+    def frame(k):
+        if sc.cfg.samples > 1:
+            return render_accumulated(sc.tworld, sc.meta, sc.cfg,
+                                      *sc.frame_args(k),
+                                      samples=sc.cfg.samples)
+        return render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(k))
+
+    frame(0)
+    torch.cuda.synchronize()
+    before = frame_mod.LAUNCHES_RAYS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = [frame(k) for k in (1, 2, 3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert frame_mod.LAUNCHES_RAYS == before + 3
+    for k, (fb, zb) in zip((1, 2, 3), frames):
+        ifrom, rays, seeds, sec = _frame_inputs(sc, k, dev)
+        fb_t, z_t = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                      sec, pack=True)
+        z_t = z_t.view(72, 128)
+        assert _bits_equal(zb, z_t)
+        assert torch.equal(fb, blur.dof_blur(fb_t.view(72, 128), z_t))

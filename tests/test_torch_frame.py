@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from pwnfps_tpu.render.frame import render_frame as jax_render_frame
 from pwnfps_tpu_torch.ops import blur, tracer
 from pwnfps_tpu_torch.ops.world import world_to_torch
+from pwnfps_tpu_torch.render import frame as frame_mod
 from pwnfps_tpu_torch.render.frame import (fb_to_rgb, pixel_seeds,
                                            render_frame, upscale)
 from pwnfps_tpu_torch.scene import flagship_scene
@@ -38,9 +39,10 @@ FRAME = 3           # a frame of the bench camera path
 def frames():
     sc = flagship_scene(W, H, "cpu")
     args = sc.frame_args(FRAME)
-    before = (tracer.LAUNCHES, blur.LAUNCHES)
+    before = (tracer.LAUNCHES, blur.LAUNCHES, frame_mod.LAUNCHES_RAYS)
     fb, zb = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
-    launches = (tracer.LAUNCHES - before[0], blur.LAUNCHES - before[1])
+    launches = (tracer.LAUNCHES - before[0], blur.LAUNCHES - before[1],
+                frame_mod.LAUNCHES_RAYS - before[2])
     world = jax.tree.map(jnp.asarray, sc.world)
     jfb, jzb = jax_render_frame(world, sc.meta, sc.cfg,
                                 *(jnp.asarray(a) for a in args[:4]),
@@ -77,7 +79,7 @@ def test_frame_outputs(frames):
 
 
 def test_cpu_frame_launches_no_kernel(frames):
-    assert frames["launches"] == (0, 0)
+    assert frames["launches"] == (0, 0, 0)
 
 
 def test_pixel_seeds_match_jax():
