@@ -31,7 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .._launch import Entry
+from .._launch import Entry, stream as current_stream
 from ..core import lcg
 from ..core.ieee import to_i32
 
@@ -190,15 +190,35 @@ def dof_blur_band_plain(fb_pad: torch.Tensor, zb: torch.Tensor, y0: int,
 
 def _launch(fb: torch.Tensor, zbuf: torch.Tensor, tab: torch.Tensor,
             fh: int) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_FRAMES
     rows, w = fb.shape
     out = torch.empty_like(fb)
-    _BLUR(fb.get_device(), fb.data_ptr(), zbuf.data_ptr(), tab.data_ptr(),
-          out.data_ptr(), rows, w, fh, _fstr(fh), lcg.INV_MOD_F)
+    index = fb.get_device()
+    _issue(index, current_stream(index), fb.data_ptr(), zbuf.data_ptr(),
+           tab.data_ptr(), out.data_ptr(), rows, w, fh)
+    return out
+
+
+def _issue(index: int, stream: int, fb: int, zbuf: int, tab: int, out: int,
+           rows: int, w: int, fh: int) -> None:
+    """One pass of the frame kernel over the planes at these addresses
+    on `stream` of device `index`, counted."""
+    global LAUNCHES, LAUNCHES_FRAMES
+    _BLUR.on(index, stream, fb, zbuf, tab, out, rows, w, fh, _fstr(fh),
+             lcg.INV_MOD_F)
     LAUNCHES += 1
     if fh < rows:
         LAUNCHES_FRAMES += 1
-    return out
+
+
+def blur_planes(device: torch.device, stream: int, fb: int, zbuf: int,
+                out: int, h: int, w: int) -> None:
+    """One DoF pass of one [h, w] frame on planes the caller allocated on
+    CUDA `device`, launched on `stream`: fb the address of the int32
+    BGRA input, zbuf of the f32 depth, out of the int32 output.  The
+    planes are not checked: render_frame's route, which allocates
+    nothing here."""
+    _issue(device.index, stream, fb, zbuf,
+           _device_tables(w, device).data_ptr(), out, h, w, h)
 
 
 def dof_blur(fb: torch.Tensor, zbuf: torch.Tensor, passes: int = 1,

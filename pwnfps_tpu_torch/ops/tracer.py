@@ -294,9 +294,6 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
     fb int32 [n] BGRA bits, or with pack=False the C4 of f32 [n]; tstep
     int32 [n_waves, n] where cfg.profile records one, int64
     [PHASE_ROWS, len(PHASES)] from the phases instance, else None."""
-    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
-        LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED, \
-        LAUNCHES_PHASES
     n = ifrom.x.shape[0]
     index = seed.get_device()
     # the contiguous copies must outlive the launch: keep them here
@@ -308,21 +305,39 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
                                         device=seed.device)
     tstep = (torch.zeros((PHASE_ROWS, len(PHASES)), dtype=torch.int64,
                          device=seed.device) if phases
-             else torch.empty((cfg.n_waves, n), dtype=torch.int32,
-                              device=seed.device)
-             if "profile" in variant(cfg) else None)
-    stream = current_stream(index)
-    args = _pack(wt, cfg, n, [t.data_ptr() for t in keep],
-                 (fb.data_ptr() if pack else 0, dist.data_ptr(),
-                  tstep.data_ptr() if tstep is not None else 0),
-                 _queue(index, stream), sec, page0,
-                 cfg.width if width is None else width, entry,
-                 0 if pack else col.data_ptr())
-    out = fb if pack else C4(*col)
-    if phases:
+             else _tstep(cfg, n, seed.device))
+    _issue(wt, cfg, n, index, current_stream(index),
+           [t.data_ptr() for t in keep],
+           (fb.data_ptr() if pack else 0, dist.data_ptr(),
+            tstep.data_ptr() if tstep is not None else 0),
+           sec, page0, cfg.width if width is None else width, entry, key,
+           0 if pack else col.data_ptr())
+    return (fb if pack else C4(*col)), dist, tstep
+
+
+def _tstep(cfg: RenderConfig, n: int, device):
+    """The int32 [n_waves, n] per-wave step counts cfg.profile records,
+    or None."""
+    if "profile" not in variant(cfg):
+        return None
+    return torch.empty((cfg.n_waves, n), dtype=torch.int32, device=device)
+
+
+def _issue(wt: TorchWorld, cfg: RenderConfig, n: int, index: int,
+           stream: int, rays, outs, sec, page0: int, width: int,
+           entry: str, key: str, out_col: int = 0) -> None:
+    """Pack the Args of one launch (see _pack) and launch `entry`, the
+    instance `key` of `instance` or "phases", on `stream` of device
+    `index`, counting it."""
+    global LAUNCHES, LAUNCHES_PAGED, LAUNCHES_SAMPLES, LAUNCHES_FUSED, \
+        LAUNCHES_PARITY, LAUNCHES_PARITY_SAMPLES, LAUNCHES_PARITY_PAGED, \
+        LAUNCHES_PHASES
+    args = _pack(wt, cfg, n, rays, outs, _queue(index, stream), sec, page0,
+                 width, entry, out_col)
+    if entry == "phases":
         _TRACE_VARIANT.on(index, stream, args)
         LAUNCHES_PHASES += 1
-        return out, dist, tstep
+        return
     _ENTRIES[entry].on(index, stream, args)
     if entry == "variant":
         LAUNCHES_VARIANT[key] += 1
@@ -330,7 +345,7 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
         LAUNCHES_PARITY_VARIANT[key] += 1
     elif entry == "flags":
         LAUNCHES_FLAGS[key] += 1
-    elif not pack:
+    elif out_col:
         LAUNCHES_UNPACKED[key] += 1
     elif key == "parity_paged":
         LAUNCHES_PARITY_PAGED += 1
@@ -346,7 +361,30 @@ def _launch(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,
         LAUNCHES_PAGED += 1
     else:
         LAUNCHES += 1
-    return out, dist, tstep
+
+
+def trace_planes(wt: TorchWorld, cfg: RenderConfig, n: int, index: int,
+                 stream: int, rays, fb: int, dist: int, sec,
+                 page0: int = 0) -> None:
+    """trace_wave(pack=True) of a row-major cfg.width-wide image of n
+    rays on planes the caller allocated on CUDA device `index`, launched
+    on `stream`: rays the addresses of the 7 input planes (ifrom x, y, z,
+    iray x, y, z, seed; n values each, as csrc/rays.cu writes them), fb
+    and dist those of the int32 BGRA and f32 outputs.  The planes are
+    not checked: render_frame's route, which allocates nothing here but
+    the step counts cfg.profile records (dropped, as trace_wave drops
+    them)."""
+    check_config(cfg)
+    if cfg.samples < 1:
+        raise ValueError(f"samples={cfg.samples}: need at least one")
+    if not 0 <= page0 < wt.n_pages:
+        raise ValueError(f"start page {page0} is not a page of a "
+                         f"{wt.n_pages}-page world")
+    entry, key = instance(cfg, wt.n_pages)
+    tstep = _tstep(cfg, n, wt.device)
+    _issue(wt, cfg, n, index, stream, rays,
+           (fb, dist, tstep.data_ptr() if tstep is not None else 0),
+           sec, page0, cfg.width, entry, key)
 
 
 def trace_wave(wt: TorchWorld, cfg: RenderConfig, ifrom: V3, iray: V3,

@@ -1,10 +1,11 @@
 """Frame renderer (pwnfps_tpu/render/frame.py).
 
 ray gen -> multi-bounce trace with in-kernel BGRA8 pack -> DoF blur.
-On a CUDA device each of the three is one kernel launch (csrc/rays.cu
-through `frame_rays`, ops/tracer.py, ops/blur.py), and a frame waits
-on no stream synchronisation; on the CPU all three take their plain torch
-versions (`gen_rays`, `pixel_seeds`, the origin broadcast).  Fast mode
+On a CUDA device each of the three is one kernel launch (csrc/rays.cu,
+ops/tracer.py, ops/blur.py) on planes of two blocks allocated once a
+frame, and a frame waits on no stream synchronisation; on the CPU all
+three take their plain torch versions (`gen_rays`, `pixel_seeds`, the
+origin broadcast).  Fast mode
 and parity mode (`cfg.parity`) on one page; fast mode on a paged world,
 every primary ray starting on `cfg.cam_page`.  `render_accumulated` is
 the multi-sample frame (BASELINE config #5), in either mode: the trace
@@ -20,11 +21,11 @@ import struct
 import numpy as np
 import torch
 
-from .._launch import Entry
+from .._launch import Entry, stream as current_stream
 from ..core import lcg
 from ..core.config import RenderConfig
-from ..ops.blur import dof_blur
-from ..ops.tracer import trace_wave
+from ..ops.blur import blur_planes, dof_blur
+from ..ops.tracer import trace_planes, trace_wave
 from ..ops.vec import V3
 from ..ops.world import TorchWorld
 from ..ops.worlddev import WorldMeta
@@ -153,6 +154,8 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     if not 0 <= cfg.cam_page < meta.n_pages:
         raise ValueError(f"cam_page {cfg.cam_page} is not a page of a "
                          f"{meta.n_pages}-page world")
+    if world.device.type == "cuda":
+        return _render_cuda(world, cfg, origin, rayb, rdx, rdy, sec)
     h, w = cfg.height, cfg.width
     ifrom, rays, seeds = frame_rays(cfg, origin, rayb, rdx, rdy,
                                     world.device)
@@ -162,6 +165,35 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     if cfg.postproc_blur:
         fb = dof_blur(fb, zbuf, cfg.postproc_blur)
     return fb, zbuf
+
+
+def _render_cuda(world: TorchWorld, cfg: RenderConfig, origin, rayb, rdx,
+                 rdy, sec):
+    """render_frame on a CUDA device: the ray kernel, the tracer and each
+    DoF pass launched on the current stream by address, on the rows of
+    two int32 blocks allocated once a frame.  The scratch block holds the
+    7 ray planes, then the tracer's colour and each pass's output but the
+    last; the output block [2, h, w] the delivered framebuffer and the
+    depth, which the returned tensors are views of."""
+    global LAUNCHES_RAYS
+    h, w = cfg.height, cfg.width
+    n, passes = h * w, cfg.postproc_blur
+    dev = world.device
+    scratch = torch.empty((7 + passes, n), dtype=torch.int32, device=dev)
+    out = torch.empty((2, h, w), dtype=torch.int32, device=dev)
+    index, stream = dev.index, current_stream(dev.index)
+    row, s0, o0 = 4 * n, scratch.data_ptr(), out.data_ptr()
+    rays = [s0 + k * row for k in range(7)]
+    _RAYS.on(index, stream, ray_args(cfg, origin, rayb, rdx, rdy, rays))
+    LAUNCHES_RAYS += 1
+    fb = s0 + 7 * row if passes else o0
+    trace_planes(world, cfg, n, index, stream, rays, fb, o0 + row, sec,
+                 cfg.cam_page)
+    for p in range(passes):
+        dst = o0 if p == passes - 1 else s0 + (8 + p) * row
+        blur_planes(dev, stream, fb, o0 + row, dst, h, w)
+        fb = dst
+    return out[0], out[1].view(torch.float32)
 
 
 def render_accumulated(world: TorchWorld, meta: WorldMeta,

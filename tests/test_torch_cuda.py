@@ -1347,18 +1347,21 @@ def test_ray_kernel_equals_plain(dev, w, h, parity):
 
 
 @pytest.mark.parametrize("scene", ["flagship", "parity", "ptrace",
-                                   "parity_ptrace"])
+                                   "parity_ptrace", "maze"])
 def test_frames_never_synchronise(dev, scene):
-    """render_frame (fast, parity) and render_accumulated (samples 4, fast
-    and parity) call no stream synchronisation once a frame of the
-    shape has run (the first uploads the blur's tables): torch's sync
-    debug mode "error" raises on one.  Each frame launches the ray kernel
-    once and equals the tracer and the blur run on the plain path's rays."""
+    """render_frame (fast, parity, the paged maze) and render_accumulated
+    (samples 4, fast and parity) call no stream synchronisation once a
+    frame of the shape has run (the first uploads the blur's tables):
+    torch's sync debug mode "error" raises on one.  Each frame launches
+    the ray kernel once and equals the tracer and the blur run on the
+    plain path's rays; each maze frame launches the paged instance once
+    and the one-page instance never."""
     sc = {"flagship": lambda: flagship_scene(128, 72, dev),
           "parity": lambda: parity_scene(128, 72, dev),
           "ptrace": lambda: ptrace_scene(128, 72, dev),
           "parity_ptrace": lambda: ptrace_scene(128, 72, dev,
-                                                parity=True)}[scene]()
+                                                parity=True),
+          "maze": lambda: maze_scene(128, 72, dev)}[scene]()
 
     def frame(k):
         if sc.cfg.samples > 1:
@@ -1370,16 +1373,56 @@ def test_frames_never_synchronise(dev, scene):
     frame(0)
     torch.cuda.synchronize()
     before = frame_mod.LAUNCHES_RAYS
+    paged = (tracer.LAUNCHES_PAGED, tracer.LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
         frames = [frame(k) for k in (1, 2, 3)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert frame_mod.LAUNCHES_RAYS == before + 3
+    if scene == "maze":
+        assert (tracer.LAUNCHES_PAGED, tracer.LAUNCHES) == (paged[0] + 3,
+                                                            paged[1])
     for k, (fb, zb) in zip((1, 2, 3), frames):
         ifrom, rays, seeds, sec = _frame_inputs(sc, k, dev)
         fb_t, z_t = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
-                                      sec, pack=True)
+                                      sec, pack=True, page0=sc.cfg.cam_page)
         z_t = z_t.view(72, 128)
         assert _bits_equal(zb, z_t)
         assert torch.equal(fb, blur.dof_blur(fb_t.view(72, 128), z_t))
+
+
+@pytest.mark.parametrize("passes", [0, 1, 2])
+@pytest.mark.parametrize("scene", ["flagship", "parity", "maze", "samples",
+                                   "profile"])
+def test_render_frame_route_equals_tensor_route(dev, scene, passes):
+    """render_frame on the card launches the ray kernel, the tracer and
+    each DoF pass by address on the rows of two blocks allocated once a
+    frame: at every pass count, in both modes, on the paged maze, with
+    samples 2 and with the profile knob (which allocates its step counts)
+    it gives the bits of trace_wave and dof_blur run on frame_rays'
+    tensors, with one launch of each kernel a pass; the framebuffer and
+    the depth it returns are separate rows of one block."""
+    kw = {"samples": dict(samples=2), "profile": dict(profile=True)}.get(
+        scene, {})
+    sc = {"parity": lambda: parity_scene(96, 40, dev, postproc_blur=passes),
+          "maze": lambda: maze_scene(96, 40, dev, postproc_blur=passes)}.get(
+        scene, lambda: flagship_scene(96, 40, dev, postproc_blur=passes,
+                                      **kw))()
+    args = sc.frame_args(3)
+    ifrom, rays, seeds = frame_rays(sc.cfg, *args[:4], dev)
+    fb_t, z_t = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                                  args[4], pack=True, page0=sc.cfg.cam_page)
+    z_t = z_t.view(40, 96)
+    want = blur.dof_blur(fb_t.view(40, 96), z_t, passes) if passes \
+        else fb_t.view(40, 96)
+    before = (frame_mod.LAUNCHES_RAYS, blur.LAUNCHES)
+    fb, zb = render_frame(sc.tworld, sc.meta, sc.cfg, *args)
+    assert (frame_mod.LAUNCHES_RAYS, blur.LAUNCHES) == (before[0] + 1,
+                                                        before[1] + passes)
+    assert fb.shape == zb.shape == (40, 96)
+    assert (fb.dtype, zb.dtype) == (torch.int32, torch.float32)
+    assert zb.data_ptr() - fb.data_ptr() == 4 * 40 * 96
+    assert _bits_equal(zb, z_t)
+    assert torch.equal(fb, want)
+    assert torch.unique(fb).numel() > 50
