@@ -10,18 +10,31 @@ and parity mode (`cfg.parity`) on one page; fast mode on a paged world,
 every primary ray starting on `cfg.cam_page`.  `render_accumulated` is
 the multi-sample frame (BASELINE config #5), in either mode: the trace
 averages `samples` bounce chains a pixel in the same one launch.
+
+On a CUDA device a frame runs on the device's render stream, one stream
+the module owns a device, and not on the caller's current stream: what
+the caller queues after one frame, such as the copy of its framebuffer
+to the host, then runs beside the next frame's kernels.  The render
+stream waits on the caller's stream only where the frame's inputs may
+have been written there since it last did: on another world, or on one
+whose tensors were written in place (`must_join`); the camera, the clock
+and the configuration come by value.  The caller's stream waits on the
+frame before the call returns, so the returned tensors are ordered on
+the caller's current stream as any tensor made there.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import operator
 import struct
+import weakref
 
 import numpy as np
 import torch
 
-from .._launch import Entry, stream as current_stream
+from .._launch import Entry
 from ..core import lcg
 from ..core.config import RenderConfig
 from ..ops.blur import blur_planes, dof_blur
@@ -38,6 +51,13 @@ LAUNCHES_RAYS = 0
 # height, parity, and the 12 floats of origin, rayb, rdx and rdy
 _RAY_ARGS = struct.Struct("=7Q4i12f")
 _RAYS = Entry("rays", "pwnfps_frame_rays", [ctypes.c_char_p])
+# frames queued on a render stream since import, and the times a render
+# stream waited on its caller's stream (must_join); reset by callers that
+# count
+FRAMES_SIDE = 0
+STREAM_JOINS = 0
+# device index -> its _RenderStream, made at the device's first frame
+_RENDER: dict = {}
 
 
 def gen_rays(rayb, rdx, rdy, width: int, height: int,
@@ -96,12 +116,21 @@ def _host_f32(v) -> np.ndarray:
     return np.asarray(v, np.float32).reshape(3)
 
 
+def _camera(origin, rayb, rdx, rdy) -> list:
+    """The 12 floats of a frame's camera vectors, read to the host."""
+    return np.concatenate([_host_f32(v)
+                           for v in (origin, rayb, rdx, rdy)]).tolist()
+
+
+def _pack_rays(cfg: RenderConfig, outs, cam: list) -> bytes:
+    return _RAY_ARGS.pack(*outs, cfg.width * cfg.height, cfg.width,
+                          cfg.height, int(cfg.parity), *cam)
+
+
 def ray_args(cfg: RenderConfig, origin, rayb, rdx, rdy, outs) -> bytes:
     """csrc/rays.cu's RayArgs for cfg's frame: outs the 7 output
     addresses, the camera vectors passed by value."""
-    cam = np.concatenate([_host_f32(v) for v in (origin, rayb, rdx, rdy)])
-    return _RAY_ARGS.pack(*outs, cfg.width * cfg.height, cfg.width,
-                          cfg.height, int(cfg.parity), *cam.tolist())
+    return _pack_rays(cfg, outs, _camera(origin, rayb, rdx, rdy))
 
 
 def _launch_rays(cfg: RenderConfig, origin, rayb, rdx, rdy,
@@ -149,7 +178,9 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     on the world's device.  origin/rayb/rdx/rdy: float32 [3] (numpy or
     tensors, as render/camera.camera_vectors gives them; on a CUDA device
     numpy, or CPU tensors, keep the frame free of synchronisation, see
-    frame_rays); sec: the clock.
+    frame_rays); sec: the clock.  On a CUDA device the frame runs on the
+    device's render stream, and the results are ordered on the caller's
+    current stream (see the module docstring).
     """
     if not 0 <= cfg.cam_page < meta.n_pages:
         raise ValueError(f"cam_page {cfg.cam_page} is not a page of a "
@@ -167,32 +198,124 @@ def render_frame(world: TorchWorld, meta: WorldMeta, cfg: RenderConfig,
     return fb, zbuf
 
 
+# absent from a CPU-only torch, which queues nothing on a render stream
+_stream_ids = getattr(torch._C, "_cuda_getCurrentStream", None)
+_set_stream = getattr(torch._C, "_cuda_setStream", None)
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
+# the tensors of a TorchWorld, whose version counters join_key holds
+WORLD_TENSORS = ("ent", "word", "sph", "bound", "buckets", "rsqrt_tab",
+                 "rcp_tab", "sse")
+_world_tensors = operator.attrgetter(*WORLD_TENSORS)
+
+
+class _RenderStream:
+    """A device's render stream (and its ids, as torch names a stream),
+    the event its last frame recorded there, the join_key of its last
+    wait on a caller's stream, and the callers' streams by their ids."""
+
+    __slots__ = ("stream", "ids", "handle", "done", "key", "callers")
+
+    def __init__(self, index: int):
+        s = self.stream = torch.cuda.Stream(index)
+        self.ids = (s.stream_id, s.device_index, s.device_type)
+        self.handle = s.cuda_stream
+        self.done = torch.cuda.Event()
+        self.key = None
+        self.callers = {}
+
+    def caller(self, index: int):
+        """(the current stream of device `index`, its ids).  The Stream is
+        built once for each stream seen: building one, as
+        torch.cuda.current_stream does, took the host of an H100 machine
+        ~5 us a call."""
+        ids = _stream_ids(index)
+        s = self.callers.get(ids)
+        if s is None:
+            s = self.callers[ids] = torch.cuda.Stream(
+                stream_id=ids[0], device_index=ids[1], device_type=ids[2])
+        return s, ids
+
+
+def _versions(world: TorchWorld) -> tuple:
+    return tuple(t._version for t in _world_tensors(world))
+
+
+def join_key(world: TorchWorld) -> tuple:
+    """What must_join compares: the world, held weakly, and the version
+    counters of its tensors, which an in-place write moves."""
+    return weakref.ref(world), _versions(world)
+
+
+def must_join(world: TorchWorld, last) -> bool:
+    """Whether a frame of `world` must wait on its caller's stream: the
+    world may have been written there since the join whose join_key is
+    `last` (None: no join yet): it is another world, or one of its
+    tensors has been written in place since.  A world is written on a
+    stream only when it is built and by in-place writes."""
+    return (last is None or last[0]() is not world
+            or last[1] != _versions(world))
+
+
 def _render_cuda(world: TorchWorld, cfg: RenderConfig, origin, rayb, rdx,
                  rdy, sec):
     """render_frame on a CUDA device: the ray kernel, the tracer and each
-    DoF pass launched on the current stream by address, on the rows of
-    two int32 blocks allocated once a frame.  The scratch block holds the
-    7 ray planes, then the tracer's colour and each pass's output but the
-    last; the output block [2, h, w] the delivered framebuffer and the
-    depth, which the returned tensors are views of."""
-    global LAUNCHES_RAYS
+    DoF pass launched by address on the device's render stream, on the
+    rows of two int32 blocks allocated once a frame while the render
+    stream is the current stream, so that the caching allocator ties
+    them to it.  The scratch block holds the 7 ray planes, then the
+    tracer's colour and each pass's output but the last; the output
+    block [2, h, w] the delivered framebuffer and the depth, which the
+    returned tensors are views of.
+
+    The render stream first waits on the caller's current stream where
+    must_join says so; the caller's stream then waits on the frame's last
+    launch, and the output block is marked in use there
+    (`record_stream`), so that no later frame takes it while the caller
+    still reads it.  The current stream is set and restored by its ids:
+    torch.cuda.stream() took the host of an H100 machine ~15 us."""
+    global LAUNCHES_RAYS, FRAMES_SIDE, STREAM_JOINS
     h, w = cfg.height, cfg.width
     n, passes = h * w, cfg.postproc_blur
     dev = world.device
-    scratch = torch.empty((7 + passes, n), dtype=torch.int32, device=dev)
-    out = torch.empty((2, h, w), dtype=torch.int32, device=dev)
-    index, stream = dev.index, current_stream(dev.index)
-    row, s0, o0 = 4 * n, scratch.data_ptr(), out.data_ptr()
-    rays = [s0 + k * row for k in range(7)]
-    _RAYS.on(index, stream, ray_args(cfg, origin, rayb, rdx, rdy, rays))
-    LAUNCHES_RAYS += 1
-    fb = s0 + 7 * row if passes else o0
-    trace_planes(world, cfg, n, index, stream, rays, fb, o0 + row, sec,
-                 cfg.cam_page)
-    for p in range(passes):
-        dst = o0 if p == passes - 1 else s0 + (8 + p) * row
-        blur_planes(dev, stream, fb, o0 + row, dst, h, w)
-        fb = dst
+    index = dev.index
+    rs = _RENDER.get(index)
+    if rs is None:
+        rs = _RENDER[index] = _RenderStream(index)
+    caller, ids = rs.caller(index)
+    # read on the caller's stream, which wrote any camera tensor
+    cam = _camera(origin, rayb, rdx, rdy)
+    if must_join(world, rs.key):
+        rs.stream.wait_stream(caller)
+        rs.key = join_key(world)
+        STREAM_JOINS += 1
+    stream, prev = rs.handle, _get_device()
+    # makes device `index` current too
+    _set_stream(stream_id=rs.ids[0], device_index=rs.ids[1],
+                device_type=rs.ids[2])
+    try:
+        scratch = torch.empty((7 + passes, n), dtype=torch.int32,
+                              device=dev)
+        out = torch.empty((2, h, w), dtype=torch.int32, device=dev)
+        row, s0, o0 = 4 * n, scratch.data_ptr(), out.data_ptr()
+        rays = [s0 + k * row for k in range(7)]
+        _RAYS.on(index, stream, _pack_rays(cfg, rays, cam))
+        LAUNCHES_RAYS += 1
+        fb = s0 + 7 * row if passes else o0
+        trace_planes(world, cfg, n, index, stream, rays, fb, o0 + row, sec,
+                     cfg.cam_page)
+        for p in range(passes):
+            dst = o0 if p == passes - 1 else s0 + (8 + p) * row
+            blur_planes(dev, stream, fb, o0 + row, dst, h, w)
+            fb = dst
+        rs.done.record(rs.stream)
+    finally:
+        _set_stream(stream_id=ids[0], device_index=ids[1],
+                    device_type=ids[2])
+        if prev != index:
+            torch.cuda.set_device(prev)
+    caller.wait_event(rs.done)
+    out.record_stream(caller)
+    FRAMES_SIDE += 1
     return out[0], out[1].view(torch.float32)
 
 

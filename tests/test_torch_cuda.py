@@ -59,7 +59,11 @@ trace_wave; the generated cave level's frame equals plain in both
 modes.  The frame's rays (csrc/rays.cu through frame_rays, one launch)
 equal the plain path's bits in both modes at 1080p, 320x240, 203x150
 and 1x1, and a frame in either mode, with one sample or four, calls no
-stream synchronisation."""
+stream synchronisation.  Frames run on the render stream: 12 frames
+copied in the benchmark harness's loop through 2 pinned buffers, the
+caller's stream held back, each equal the plain rays' frame; a world
+tensor written in place shows in the next frame; one world joins the
+caller's stream once, a game session on every tick."""
 
 import dataclasses
 import re
@@ -1426,3 +1430,103 @@ def test_render_frame_route_equals_tensor_route(dev, scene, passes):
     assert _bits_equal(zb, z_t)
     assert torch.equal(fb, want)
     assert torch.unique(fb).numel() > 50
+
+
+# about 1 ms of the card's clock: torch.cuda._sleep holds the caller's
+# stream so long that a frame on the render stream runs ahead of what
+# the caller queued before or after it
+HOLD_CYCLES = 2_000_000
+
+
+def _want_frame(sc, k, dev):
+    """frame k of sc by frame_rays_plain's tensors, trace_wave and
+    dof_blur, all on the current stream: the int32 [h, w] framebuffer."""
+    h, w = sc.cfg.height, sc.cfg.width
+    args = sc.frame_args(k)
+    ifrom, rays, seeds = frame_mod.frame_rays_plain(sc.cfg, *args[:4], dev)
+    fb, z = tracer.trace_wave(sc.tworld, sc.cfg, ifrom, rays, seeds,
+                              args[4], pack=True, page0=sc.cfg.cam_page)
+    fb, z = fb.view(h, w), z.view(h, w)
+    return blur.dof_blur(fb, z, sc.cfg.postproc_blur) \
+        if sc.cfg.postproc_blur else fb
+
+
+@pytest.mark.parametrize("passes", [0, 1])
+def test_frames_delivered_through_pinned_buffers(dev, passes):
+    """12 frames in the benchmark harness's loop: each framebuffer copied
+    on the current stream, behind ~1 ms of other work there, to one of 2
+    pinned host buffers, frame j's copy waited on before its buffer takes
+    frame j + 2.  The render stream runs the next frames meanwhile; every
+    delivered frame equals the plain rays' trace and blur, so no frame's
+    output block went to a later frame while its copy was pending."""
+    sc = flagship_scene(160, 96, dev, postproc_blur=passes)
+    want = [_want_frame(sc, k, dev).cpu() for k in range(12)]
+    bufs = [torch.empty((96, 160), dtype=torch.int32, pin_memory=True)
+            for _ in range(2)]
+    events = [torch.cuda.Event() for _ in range(2)]
+    flight, got = [], {}
+
+    def land():
+        j, slot = flight.pop(0)
+        events[slot].synchronize()
+        got[j] = bufs[slot].clone()
+
+    for k in range(12):
+        fb, zb = render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(k))
+        if len(flight) == 2:
+            land()
+        torch.cuda._sleep(HOLD_CYCLES)
+        bufs[k % 2].copy_(fb, non_blocking=True)
+        events[k % 2].record()
+        flight.append((k, k % 2))
+        del fb, zb
+    while flight:
+        land()
+    for k in range(12):
+        assert torch.equal(got[k], want[k]), f"frame {k}"
+
+
+def test_in_place_world_write_shows_in_the_next_frame(dev):
+    """A world tensor written in place on the current stream, behind
+    ~20 ms of other work there, between two frames of one camera: the
+    render stream waits for the write (the world's version moved), so
+    the second frame shows it and equals the edited world's frame."""
+    from pwnfps_tpu_torch.ops.world import SCB, SCR
+
+    sc = flagship_scene(160, 96, dev)
+    args = sc.frame_args(3)
+    fb0 = render_frame(sc.tworld, sc.meta, sc.cfg, *args)[0].clone()
+    joins = frame_mod.STREAM_JOINS
+    torch.cuda._sleep(20 * HOLD_CYCLES)
+    sc.tworld.sph[:, SCB:SCR + 1].mul_(0.5)
+    fb1 = render_frame(sc.tworld, sc.meta, sc.cfg, *args)[0]
+    assert frame_mod.STREAM_JOINS == joins + 1
+    assert not torch.equal(fb1, fb0)
+    assert torch.equal(fb1, _want_frame(sc, 3, dev))
+
+
+def test_stream_joins_once_a_world(dev):
+    """12 frames of one world queue 12 frames on the render stream and
+    join the caller's stream once, with one ray, tracer and blur launch
+    a frame; a game session, which uploads a new world every tick, joins
+    on every tick."""
+    from pwnfps_tpu_torch.core.config import RenderConfig
+    from pwnfps_tpu_torch.host.loop import GameSession
+
+    sc = flagship_scene(64, 40, dev)
+    before = (frame_mod.FRAMES_SIDE, frame_mod.STREAM_JOINS,
+              frame_mod.LAUNCHES_RAYS, _counts())
+    for k in range(12):
+        render_frame(sc.tworld, sc.meta, sc.cfg, *sc.frame_args(k))
+    torch.cuda.synchronize()
+    assert (frame_mod.FRAMES_SIDE - before[0],
+            frame_mod.STREAM_JOINS - before[1],
+            frame_mod.LAUNCHES_RAYS - before[2]) == (12, 1, 12)
+    assert _delta(before[3]) == (12, 0, 0, 0, 0, 12, 0, 0, 0)
+    sess = GameSession(cfg=RenderConfig(width=64, height=40), device=dev)
+    before = (frame_mod.FRAMES_SIDE, frame_mod.STREAM_JOINS)
+    for _ in range(3):
+        sess.render()
+        sess.tick(1 / 60)
+    assert (frame_mod.FRAMES_SIDE - before[0],
+            frame_mod.STREAM_JOINS - before[1]) == (3, 3)
